@@ -1,0 +1,216 @@
+"""Encoder registry: embedding name -> (preprocess, apply_fn, params,
+out_size) handle (counterpart of ``pvr_habitat_tpu/models/registry.py``).
+
+This slice carries ``true_state``, ``random`` and the whole ResNet family
+(resnet18/34/50, places, demy, moco, the l3/l4 grafts).  Pretrained
+checkpoints keep the reference's filenames and key surgery; a torch
+checkpoint's state dict already is the port's flat dict (OIHW).  When a
+file is absent the encoder falls back to a deterministic, name-seeded
+random init with the JAX package's numpy stream, so both packages build
+the same weights for the same name.
+"""
+
+import hashlib
+import os
+import pickle
+import warnings
+import zipfile
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+import numpy as np
+
+from pvr_habitat_tpu_torch.models import convert, random_conv, resnet
+from pvr_habitat_tpu_torch.models.convert import FLAT_FORMAT
+from pvr_habitat_tpu_torch.ops import image as im
+from pvr_habitat_tpu_torch.utils.platform import resolve_device
+
+
+@dataclass
+class EncoderHandle:
+    name: str
+    preprocess: Optional[im.Preprocess]
+    apply_fn: Callable       # (params, x_normalized, train, fused) -> (N, O)
+    params: dict
+    out_size: int
+    fused_routes: tuple = ("off",)   # the ``fused`` values apply_fn takes
+
+
+# ---------------------------------------------------------------------------
+# Checkpoint filename map (reference: src/embeddings.py:121-195)
+# ---------------------------------------------------------------------------
+
+CHECKPOINT_FILES = {
+    "resnet50_places": "resnet50_places.pth.tar",
+    "resnet50_l4": "resnet50_l4.pth.tar",
+    "resnet50_l3": "resnet50_l3.tar",
+    "resnet50_places_l4": "resnet50_places_l4.tar",
+    "resnet50_places_l3": "resnet50_places_l3.tar",
+    "demy": "demy.pth",
+    "moco_aug": "moco_aug.pth.tar",
+    "moco_aug_habitat": "moco_aug_habitat_64.pth",
+    "moco_aug_mujoco": "moco_aug_mujoco.pth",
+    "moco_aug_uber": "moco_aug_uber.pth",
+    "moco_aug_places": "moco_aug_places.pth.tar",
+    "moco_aug_l4": "moco_aug_l4.pth",
+    "moco_aug_places_l4": "moco_aug_places_l4.pth",
+    "moco_aug_l3": "moco_aug_l3.pth",
+    "moco_aug_places_l3": "moco_aug_places_l3.pth",
+    "moco_croponly": "moco_croponly.pth",
+    "moco_croponly_places": "moco_croponly_places.pth",
+    "moco_croponly_habitat": "moco_croponly_habitat_64.pth",
+    "moco_croponly_mujoco": "moco_croponly_mujoco.pth",
+    "moco_croponly_uber": "moco_croponly_uber.pth",
+    "moco_croponly_l4": "moco_croponly_l4.pth",
+    "moco_croponly_l3": "moco_croponly_l3.pth",
+    "moco_croponly_places_l4": "moco_croponly_places_l4.pth",
+    "moco_croponly_places_l3": "moco_croponly_places_l3.pth",
+    "moco_coloronly": "moco_coloronly.pth",
+    "maskrcnn_l3": "maskrcnn_l3.pth",
+    "mae_base": "mae_pretrain_vit_base.pth",
+    "mae_large": "mae_pretrain_vit_large.pth",
+    "mae_huge": "mae_pretrain_vit_huge.pth",
+    "resnet18": "resnet18_imagenet.pth",
+    "resnet34": "resnet34_imagenet.pth",
+    "resnet50": "resnet50_imagenet.pth",
+    "clip_vit": "clip_vit_b32.pth",
+    "clip_rn50": "clip_rn50.pth",
+}
+
+
+def _name_seed(name, run_id=0):
+    digest = hashlib.sha256(f"{name}:{run_id}".encode()).digest()
+    return int.from_bytes(digest[:4], "little")
+
+
+def _is_flat_artifact(path):
+    """True for a ``convert.save_flat`` payload of either package.
+
+    ``EmbeddingNet.save`` persists '{data_path}/{name}.tar'.  For names
+    whose pretrained CHECKPOINT_FILES entry is also '{name}.tar' that
+    artifact shadows the expected torch checkpoint; it holds folded
+    serving params, so it must not be loaded as one.  Skipping it falls
+    back to the seeded random init, which is run_id-independent and so
+    bit-identical to the weights the embed stage used."""
+    try:
+        with open(path, "rb") as handle:
+            head = handle.read(256)
+    except OSError:
+        return False
+    return FLAT_FORMAT.encode() in head
+
+
+def _find_checkpoint(name, checkpoint_dir):
+    filename = CHECKPOINT_FILES.get(name)
+    if filename is None:
+        return None
+    for base in ([checkpoint_dir] if checkpoint_dir else []) + ["."]:
+        path = os.path.join(base, filename)
+        if os.path.isfile(path) and not _is_flat_artifact(path):
+            return path
+    return None
+
+
+# Errors the load -> surgery -> key-check chain is EXPECTED to raise on a
+# corrupt or foreign checkpoint file.  Anything else must propagate.
+_EXPECTED_LOAD_ERRORS = (OSError, EOFError, KeyError, ValueError,
+                         RuntimeError, pickle.UnpicklingError,
+                         zipfile.BadZipFile)
+
+
+def _load_or_init_resnet(name, spec, surgery, pretrained, checkpoint_dir,
+                         seed, device):
+    path = _find_checkpoint(name, checkpoint_dir) if pretrained else None
+    if path is not None:
+        # Fail fast by default: pretrained=True silently yielding random
+        # features would invalidate results.  PVR_TPU_CKPT_FALLBACK=1 opts
+        # into warn-and-continue, as in the JAX package.
+        try:
+            ckpt = convert.load_torch_checkpoint(path)
+            state_dict = surgery(ckpt.get("state_dict", ckpt))
+            expected = set(spec.param_names())
+            params = {k: v.detach().float().to(device)
+                      for k, v in state_dict.items() if k in expected}
+            convert.check_expected(params, expected, context=name)
+            return params
+        except _EXPECTED_LOAD_ERRORS as exc:
+            if os.environ.get("PVR_TPU_CKPT_FALLBACK") != "1":
+                raise RuntimeError(
+                    f"encoder '{name}': failed to load checkpoint "
+                    f"{path} ({exc}); set PVR_TPU_CKPT_FALLBACK=1 to "
+                    f"warn and fall back to the seeded random init "
+                    f"instead") from exc
+            warnings.warn(
+                f"encoder '{name}': failed to load checkpoint {path} "
+                f"({exc}); using the seeded random init instead")
+    if pretrained and name != "random":
+        warnings.warn(
+            f"encoder '{name}': checkpoint "
+            f"{CHECKPOINT_FILES.get(name)} not found; using random init")
+    return resnet.init_params(spec, np.random.RandomState(seed), device)
+
+
+def _resnet_family(name):
+    """Returns (spec, surgery) or None."""
+    plain = {"resnet18": 18, "resnet34": 34, "resnet50": 50}
+    if name in plain:
+        return resnet.ResNetSpec(plain[name]), convert.strip_module_prefix
+    if name in ("resnet50_places", "demy"):
+        surgery = (convert.strip_module_prefix if name == "resnet50_places"
+                   else convert.moco_encoder_q)
+        return resnet.ResNetSpec(50), surgery
+    if name.startswith("resnet50") and name.endswith(("_l3", "_l4")):
+        return (resnet.ResNetSpec(50, cut=name[-2:]),
+                convert.strip_module_prefix)
+    if name.startswith("moco_") and name.endswith(("_l3", "_l4")):
+        return (resnet.ResNetSpec(50, cut=name[-2:]), convert.moco_encoder_q)
+    if name.startswith("moco_") and "_uber_" not in name:
+        return resnet.ResNetSpec(50), convert.moco_encoder_q
+    return None
+
+
+_NOT_PORTED = (
+    ("_uber_", "uber fusions: ROADMAP.md queue 1, item 11"),
+    ("mae_", "MAE ViTs: ROADMAP.md queue 1, item 11 (with kernel 3)"),
+    ("clip_", "CLIP: ROADMAP.md queue 1, item 11"),
+    ("maskrcnn_", "Mask R-CNN: ROADMAP.md queue 1, item 11"),
+)
+
+
+def build_encoder(name, *, pretrained=True, checkpoint_dir=None, run_id=0,
+                  device=None):
+    """Construct an EncoderHandle for a name of this slice."""
+    dev = resolve_device(device)
+
+    if name == "true_state":
+        return EncoderHandle(name, None, lambda p, x, train=False: x, {}, 12)
+
+    if name == "random":
+        params = random_conv.init_params(
+            np.random.RandomState(_name_seed(name, run_id)), dev)
+        pre = im.default_preprocess()
+        return EncoderHandle(
+            name, pre, random_conv.apply, params,
+            random_conv.out_size(pre.crop_size))
+
+    for marker, item in _NOT_PORTED:
+        if marker in name:
+            raise NotImplementedError(
+                f"encoder '{name}' is not ported yet ({item})")
+
+    fam = _resnet_family(name)
+    if fam is None:
+        raise NotImplementedError(f"Requested model not available: {name}")
+    spec, surgery = fam
+    pre = im.default_preprocess()
+    params = _load_or_init_resnet(name, spec, surgery, pretrained,
+                                  checkpoint_dir, _name_seed(name), dev)
+
+    def rn_apply(p, x, train=False, fused="off", _spec=spec):
+        if fused == "off":
+            return resnet.apply(p, x, _spec, train=train)
+        return resnet.FUSED_APPLY[fused](p, x, _spec)
+
+    return EncoderHandle(name, pre, rn_apply, params,
+                         spec.out_size(pre.crop_size),
+                         resnet.fused_routes(spec))
