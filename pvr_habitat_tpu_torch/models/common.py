@@ -69,6 +69,26 @@ def flatten_nchw(y):
     return y.permute(0, 3, 1, 2).reshape(y.shape[0], -1)
 
 
+def layer_norm(x, p, prefix, eps=1e-6):
+    """LayerNorm over the last axis with the JAX package's rounding points:
+    the mean and the biased variance accumulate in f32 and are rounded to
+    x's dtype, then ``(x - mean) * rsqrt(var + eps)`` runs in x's dtype
+    with eps rounded to it (``F.layer_norm`` would stay in f32)."""
+    dt = x.dtype
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True).to(dt)
+    var = xf.var(dim=-1, unbiased=False, keepdim=True).to(dt)
+    y = (x - mean) * torch.rsqrt(var + torch.tensor(eps, dtype=dt))
+    return y * p[f"{prefix}.weight"].to(dt) + p[f"{prefix}.bias"].to(dt)
+
+
+def gelu(x):
+    """torch.nn.GELU's exact erf in f32 (the parity path); the tanh
+    approximation in bf16, as in the JAX package."""
+    return F.gelu(x, approximate="tanh" if x.dtype == torch.bfloat16
+                  else "none")
+
+
 # -----------------------------------------------------------------------------
 # Initializers replicating torch distributions (numpy, host-side).  They
 # draw the same numpy stream as the JAX package's, and return PyTorch's

@@ -6,14 +6,17 @@ Input: (N, H, W, 3) uint8 NHWC frames.  Output: (N, out_size).  One
 forward runs the preprocess and the encoder on the device; eval mode
 returns numpy squeezed like the reference, train mode a tensor.
 
-``fused`` picks the route of a bottleneck ResNet's blocks: ``off``
-(``F.conv2d``), ``v1``, ``v2`` or ``hybrid`` (the Hopper kernels of
-``ops/cuda/fused_bottleneck.py``).  On the card a frozen bottleneck net
-defaults to ``v1``, which runs every block of ResNet-50 through the
-kernel; on the CPU the default is ``off``, since there the kernels'
-plain versions only repeat the conv path's work.  PyTorch runs eagerly,
-so the JAX package's power-of-two batch padding, which bounded its jit
-cache, is gone; the results are the same.
+``fused`` picks the kernel route of the encoder: for a bottleneck
+ResNet's blocks ``off`` (``F.conv2d``), ``v1``, ``v2`` or ``hybrid`` (the
+Hopper kernels of ``ops/cuda/fused_bottleneck.py``); for an MAE ViT's
+attention cores ``off`` (the einsum core) or ``attention`` (the kernel of
+``ops/cuda/attention.py``).  On the card a frozen encoder defaults to its
+first kernel route, ``v1`` or ``attention``, which runs every block it
+can through the kernel; on the CPU and in train mode the default is
+``off``, since on the CPU the kernels' plain versions only repeat the
+plain path's work.  PyTorch runs eagerly, so the JAX package's
+power-of-two batch padding, which bounded its jit cache, is gone; the
+results are the same.
 """
 
 import numpy as np
@@ -52,8 +55,8 @@ class EmbeddingNet:
 
         routes = self.handle.fused_routes
         if fused is None:
-            fused = "v1" if (self.device.type == "cuda" and not train
-                             and "v1" in routes) else "off"
+            fused = (routes[1] if self.device.type == "cuda" and not train
+                     and len(routes) > 1 else "off")
         if fused not in routes or (train and fused != "off"):
             raise ValueError(f"fused={fused!r} not available for "
                              f"'{embedding_name}' (train={train}); "

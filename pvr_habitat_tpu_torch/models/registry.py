@@ -1,13 +1,14 @@
 """Encoder registry: embedding name -> (preprocess, apply_fn, params,
 out_size) handle (counterpart of ``pvr_habitat_tpu/models/registry.py``).
 
-This slice carries ``true_state``, ``random`` and the whole ResNet family
-(resnet18/34/50, places, demy, moco, the l3/l4 grafts).  Pretrained
-checkpoints keep the reference's filenames and key surgery; a torch
-checkpoint's state dict already is the port's flat dict (OIHW).  When a
-file is absent the encoder falls back to a deterministic, name-seeded
-random init with the JAX package's numpy stream, so both packages build
-the same weights for the same name.
+This port carries ``true_state``, ``random``, the whole ResNet family
+(resnet18/34/50, places, demy, moco, the l3/l4 grafts) and the MAE ViTs
+(mae_base/large/huge).  Pretrained checkpoints keep the reference's
+filenames and key surgery; a torch checkpoint's state dict already is
+the port's flat dict (OIHW).  When a file is absent the encoder falls
+back to a deterministic, name-seeded random init with the JAX package's
+numpy stream, so both packages build the same weights for the same
+name.
 """
 
 import hashlib
@@ -20,7 +21,7 @@ from typing import Callable, Optional
 
 import numpy as np
 
-from pvr_habitat_tpu_torch.models import convert, random_conv, resnet
+from pvr_habitat_tpu_torch.models import convert, random_conv, resnet, vit
 from pvr_habitat_tpu_torch.models.convert import FLAT_FORMAT
 from pvr_habitat_tpu_torch.ops import image as im
 from pvr_habitat_tpu_torch.utils.platform import resolve_device
@@ -33,7 +34,9 @@ class EncoderHandle:
     apply_fn: Callable       # (params, x_normalized, train, fused) -> (N, O)
     params: dict
     out_size: int
-    fused_routes: tuple = ("off",)   # the ``fused`` values apply_fn takes
+    # The ``fused`` values apply_fn takes; the first kernel route listed
+    # after "off" is the card's default (EmbeddingNet).
+    fused_routes: tuple = ("off",)
 
 
 # ---------------------------------------------------------------------------
@@ -118,21 +121,17 @@ _EXPECTED_LOAD_ERRORS = (OSError, EOFError, KeyError, ValueError,
                          zipfile.BadZipFile)
 
 
-def _load_or_init_resnet(name, spec, surgery, pretrained, checkpoint_dir,
-                         seed, device):
+def _load_or_init(name, pretrained, checkpoint_dir, load, init):
+    """The encoder's params: ``load(checkpoint)`` when ``pretrained`` and
+    the file is present, else ``init()`` (with a warning when a file was
+    asked for)."""
     path = _find_checkpoint(name, checkpoint_dir) if pretrained else None
     if path is not None:
         # Fail fast by default: pretrained=True silently yielding random
         # features would invalidate results.  PVR_TPU_CKPT_FALLBACK=1 opts
         # into warn-and-continue, as in the JAX package.
         try:
-            ckpt = convert.load_torch_checkpoint(path)
-            state_dict = surgery(ckpt.get("state_dict", ckpt))
-            expected = set(spec.param_names())
-            params = {k: v.detach().float().to(device)
-                      for k, v in state_dict.items() if k in expected}
-            convert.check_expected(params, expected, context=name)
-            return params
+            return load(convert.load_torch_checkpoint(path))
         except _EXPECTED_LOAD_ERRORS as exc:
             if os.environ.get("PVR_TPU_CKPT_FALLBACK") != "1":
                 raise RuntimeError(
@@ -143,11 +142,11 @@ def _load_or_init_resnet(name, spec, surgery, pretrained, checkpoint_dir,
             warnings.warn(
                 f"encoder '{name}': failed to load checkpoint {path} "
                 f"({exc}); using the seeded random init instead")
-    if pretrained and name != "random":
+    if pretrained:
         warnings.warn(
             f"encoder '{name}': checkpoint "
             f"{CHECKPOINT_FILES.get(name)} not found; using random init")
-    return resnet.init_params(spec, np.random.RandomState(seed), device)
+    return init()
 
 
 def _resnet_family(name):
@@ -171,7 +170,6 @@ def _resnet_family(name):
 
 _NOT_PORTED = (
     ("_uber_", "uber fusions: ROADMAP.md queue 1, item 11"),
-    ("mae_", "MAE ViTs: ROADMAP.md queue 1, item 11 (with kernel 3)"),
     ("clip_", "CLIP: ROADMAP.md queue 1, item 11"),
     ("maskrcnn_", "Mask R-CNN: ROADMAP.md queue 1, item 11"),
 )
@@ -193,6 +191,11 @@ def build_encoder(name, *, pretrained=True, checkpoint_dir=None, run_id=0,
             name, pre, random_conv.apply, params,
             random_conv.out_size(pre.crop_size))
 
+    if name in vit.MAE_CONFIGS:
+        return vit.build_mae_encoder(name, pretrained=pretrained,
+                                     checkpoint_dir=checkpoint_dir,
+                                     device=dev)
+
     for marker, item in _NOT_PORTED:
         if marker in name:
             raise NotImplementedError(
@@ -203,8 +206,19 @@ def build_encoder(name, *, pretrained=True, checkpoint_dir=None, run_id=0,
         raise NotImplementedError(f"Requested model not available: {name}")
     spec, surgery = fam
     pre = im.default_preprocess()
-    params = _load_or_init_resnet(name, spec, surgery, pretrained,
-                                  checkpoint_dir, _name_seed(name), dev)
+
+    def load(ckpt):
+        state_dict = surgery(ckpt.get("state_dict", ckpt))
+        expected = set(spec.param_names())
+        params = {k: v.detach().float().to(dev)
+                  for k, v in state_dict.items() if k in expected}
+        convert.check_expected(params, expected, context=name)
+        return params
+
+    params = _load_or_init(
+        name, pretrained, checkpoint_dir, load,
+        lambda: resnet.init_params(spec, np.random.RandomState(
+            _name_seed(name)), dev))
 
     def rn_apply(p, x, train=False, fused="off", _spec=spec):
         if fused == "off":

@@ -36,6 +36,13 @@ SIGNATURES = {
             ([_INT] + [_PTR] * 11 + [_INT] * 7 + [_PTR], _INT),
         "fused_bottleneck_error_string": ([_INT], ctypes.c_char_p),
     },
+    "fused_attention": {
+        "fused_attention_launch":
+            ([_INT] + [_PTR] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
+             + [_INT] * 4 + [ctypes.c_float, _PTR], _INT),
+        "fused_attention_smem_bytes": ([_INT] * 3, ctypes.c_longlong),
+        "fused_attention_error_string": ([_INT], ctypes.c_char_p),
+    },
 }
 
 
@@ -71,13 +78,17 @@ def build(names=tuple(SIGNATURES)):
         jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True),
                       tmp, target, time.perf_counter())
+    # Wait for every nvcc before raising, so a failed build leaves no
+    # compiler running behind it.
+    done = {name: (proc.communicate()[0], proc.returncode, tmp, target,
+                   time.perf_counter() - t0)
+            for name, (proc, tmp, target, t0) in jobs.items()}
     report = {}
-    for name, (proc, tmp, target, t0) in jobs.items():
-        output, _ = proc.communicate()
-        if proc.returncode != 0:
+    for name, (output, returncode, tmp, target, seconds) in done.items():
+        if returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}.cu:\n{output}")
         os.replace(tmp, target)
-        report[name] = (time.perf_counter() - t0, output)
+        report[name] = (seconds, output)
     return report
 
 

@@ -1,5 +1,5 @@
-"""The Hopper fused-bottleneck kernels vs. their plain PyTorch versions,
-on the card.  Imports no JAX, so it runs where only PyTorch is
+"""The Hopper kernels (fused bottleneck, fused attention) vs. their plain
+PyTorch versions, on the card.  Imports no JAX, so it runs where only PyTorch is
 installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from pvr_habitat_tpu_torch.models import resnet
+from pvr_habitat_tpu_torch.ops.cuda import attention as fa
 from pvr_habitat_tpu_torch.ops.cuda import fused_bottleneck as fb
 from pvr_habitat_tpu_torch.ops.fold_bn import fold_resnet_bn
 
@@ -58,3 +59,54 @@ def test_kernels_match_plain_versions(dtype, stride, cin, planes, h):
         torch.cuda.synchronize()
         torch.testing.assert_close(got, want, atol=TOL[dtype],
                                    rtol=TOL[dtype])
+
+
+# Attention.  f32: the JAX test's 1e-5; only the summation order differs.
+# bf16: both round p to bf16 and the output to bf16 at the same points, so
+# a sum that lands on a rounding boundary moves one bf16 ulp: at most 2^-7
+# of the value (rtol), 3.9e-3 below 1 (atol).  (atol, rtol) per dtype.
+ATTN_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (4e-3, 2.0 ** -7)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [
+    (2, 4, 17, 16),       # the JAX test's ragged shape
+    (4, 12, 197, 64),     # mae_base / mae_large heads
+    (4, 16, 197, 64),
+    (2, 16, 257, 80),     # mae_huge
+])
+def test_fused_attention_matches_plain_version(dtype, shape):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    rng = np.random.RandomState(11)
+    q, k, v = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
+               .to("cuda", dtype) for _ in range(3))
+    before = fa.launches["fused_attention"]
+    got = fa.fused_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.launches["fused_attention"] == before + 1
+    assert got.shape == shape and got.dtype == dtype
+    want = fa.fused_attention_ref(q, k, v)
+    atol, rtol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_fused_attention_reads_strided_qkv_views():
+    """The ViT call site passes (N, L, H, D)-ordered views of one qkv
+    product; the kernel reads them in place and matches the copies."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    n, l, h, d = 3, 197, 12, 64
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    qkv = torch.randn(n, l, 3, h, d, device="cuda", generator=gen,
+                      dtype=torch.bfloat16)
+    q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
+    got = fa.fused_attention(q, k, v)
+    want = fa.fused_attention(*(t.contiguous() for t in (q, k, v)))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    # the output's memory is (N, L, H, D): the head merge is a view
+    assert got.transpose(1, 2).is_contiguous()

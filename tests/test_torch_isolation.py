@@ -22,6 +22,8 @@ def _modules():
 def test_every_module_imports_without_jax():
     modules = _modules()
     assert "pvr_habitat_tpu_torch.ops.cuda.fused_bottleneck" in modules
+    assert "pvr_habitat_tpu_torch.ops.cuda.attention" in modules
+    assert "pvr_habitat_tpu_torch.models.vit" in modules
     code = ("import sys, importlib\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['pvr_habitat_tpu'] = None\n"
