@@ -13,14 +13,16 @@ Phases, each fatal on failure:
 
 1. device: the card's name and power limit;
 2. build: nvcc compiles ``ops/cuda/csrc/*.cu`` into ``build/kernels``,
-   one process per source, all started together;
+   one process per source, all started together, and prints each kernel
+   instance's registers and spill bytes from ptxas;
 3. kernels: both fused-bottleneck kernels against their plain versions
    at every ResNet-50 block shape, in f32 (TF32 off, batch 8, 1e-4) and
    in bf16 (batch 256, per-image cosine gate), with the v2 border; the
    fused-attention kernel at the mae_base, mae_large and mae_huge head
    shapes, on the strided qkv views the service passes, in bf16 (batch
    256, within one ulp, per-row relative error and cosine) and f32
-   (batch 8, 1e-5), and at the ragged (2, 4, 17, 16), contiguous;
+   (batch 8, 1e-5), and at the ragged (2, 4, 17, 16) and the bf16
+   tiling's edges (``ATTENTION_EDGES``), contiguous;
 4. slice, ResNet-50: ``EmbeddingNet("resnet50", compute_dtype=bf16)``
    with ``fused`` set to v1, v2 and hybrid answers a batch of 1, a batch
    of 3 and ``embed_batches`` over 1024 frames at batch 256; each answer
@@ -73,6 +75,11 @@ ROUTE_LAUNCHES = {"v1": {"fused_bottleneck": 16, "fused_bottleneck_flat": 0},
 ATTENTION = [("mae_base", 12, 197, 64, 12),
              ("mae_large", 16, 197, 64, 24),
              ("mae_huge", 16, 257, 80, 32)]
+# bf16 attention shapes at the edges of the kernel's tiling: rows of 8,
+# 16 and 17 key tiles held in registers (full, no ragged tile), and a row
+# past 17 tiles that takes two passes over the keys.
+ATTENTION_EDGES = [(2, 4, 128, 64), (2, 4, 256, 64), (2, 4, 272, 80),
+                   (2, 4, 600, 64)]
 MAE_LAUNCHES = {"fused_attention": 12}
 # kernel -> (TPU kernel it replaces, CUDA source)
 KERNELS = {
@@ -215,9 +222,10 @@ def check_attention_kernel(torch, fa, gen, max_err):
     """f32 at 1e-5 (the JAX test's tolerance).  bf16 elementwise within
     one ulp, per-row relative norm error and per-row cosine.
     The MAE shapes read the strided qkv views the service passes; the
-    ragged JAX-test shape reads contiguous tensors."""
+    ragged JAX-test shape and the tiling's edges read contiguous tensors."""
     cases = [((2, 4, 17, 16), dtype, False) for dtype in (torch.float32,
                                                           torch.bfloat16)]
+    cases += [(shape, torch.bfloat16, False) for shape in ATTENTION_EDGES]
     for _, h, l, d, _ in ATTENTION:
         cases += [((8, h, l, d), torch.float32, True),
                   ((256, h, l, d), torch.bfloat16, True)]
@@ -432,13 +440,14 @@ def main():
 
     t0 = phase("2 build")
     report = build.build()
-    for name, (seconds, output) in report.items():
-        print(f"built {name} in {seconds:.1f} s")
-        for line in output.splitlines():
-            if "registers" in line or "spill" in line:
-                print("  ptxas:", line.strip())
     for name in build.SIGNATURES:
         build.load(name)
+        print(f"built {name} in {report[name][0]:.1f} s" if name in report
+              else f"{name} was built before this run")
+        for kernel, regs, stores, loads in build.ptxas_report(
+                build.ptxas_output(name)):
+            print(f"  ptxas: {kernel}: {regs} registers, spill stores "
+                  f"{stores} B, loads {loads} B")
     print(f"build phase {time.perf_counter() - t0:.1f} s")
 
     # Real ResNet-50 weights (seeded init, BN folded) for every block.

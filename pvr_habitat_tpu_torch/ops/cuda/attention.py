@@ -79,11 +79,14 @@ def _kernel_layout(t):
     return t.contiguous()
 
 
-def fused_attention(q, k, v):
+def fused_attention(q, k, v, lib=None):
     """q, k, v: (N, H, L, D), f32 or bf16, any strides with D's stride 1.
     Returns (N, H, L, D) in q's dtype.  On the card the result's memory
     is (N, L, H, D), so ``out.transpose(1, 2).reshape(N, L, H * D)`` is a
-    view."""
+    view.  ``lib`` exists only for ``tools/attention_tilings.py``, which
+    launches other builds of the kernel (``build.load`` with a source of
+    its own) to time them against the tree's; every other caller leaves
+    it unset."""
     if q.device.type == "cpu":
         return fused_attention_ref(q, k, v)
     if q.device.type != "cuda":
@@ -108,9 +111,10 @@ def fused_attention(q, k, v):
     if out.numel() == 0:
         return out
 
-    from pvr_habitat_tpu_torch.ops.cuda import build
+    if lib is None:
+        from pvr_habitat_tpu_torch.ops.cuda import build
 
-    lib = build.load("fused_attention")
+        lib = build.load("fused_attention")
     code = _DTYPE_CODE[q.dtype]
     smem = lib.fused_attention_smem_bytes(code, l, d)
     if smem > MAX_SMEM:

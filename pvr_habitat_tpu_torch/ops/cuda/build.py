@@ -15,6 +15,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -57,47 +58,105 @@ def _nvcc():
     return path
 
 
-def library_path(name):
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+def library_path(name, source=None):
+    """Where the library of ``name`` built from ``source`` (default
+    ``csrc/<name>.cu``) lives."""
+    source = Path(source) if source else CSRC / f"{name}.cu"
+    digest = hashlib.sha256(source.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build(names=tuple(SIGNATURES)):
-    """Compile every named source that is not built yet, one ``nvcc``
-    per source, all started together.  Returns {name: (seconds, nvcc's
-    ptxas report)}; raises with nvcc's output on a failed build."""
+def build(names=tuple(SIGNATURES), variants=()):
+    """Compile every named source, and every variant ``(label, name,
+    source)`` (another source with the C interface of ``name``), that is
+    not built yet, one ``nvcc`` per library, all started together.
+    Returns {name or label: (seconds, nvcc's ptxas report)}; raises with
+    nvcc's output on a failed build."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}
-    for name in names:
-        target = library_path(name)
+    for label, name, source in (
+            [(name, name, None) for name in names] + list(variants)):
+        target = library_path(name, source)
         if target.exists():
             continue
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        jobs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                       stderr=subprocess.STDOUT, text=True),
-                      tmp, target, time.perf_counter())
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               str(source or CSRC / f"{name}.cu")]
+        jobs[label] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, target, time.perf_counter())
     # Wait for every nvcc before raising, so a failed build leaves no
     # compiler running behind it.
-    done = {name: (proc.communicate()[0], proc.returncode, tmp, target,
-                   time.perf_counter() - t0)
-            for name, (proc, tmp, target, t0) in jobs.items()}
+    done = {label: (proc.communicate()[0], proc.returncode, tmp, target,
+                    time.perf_counter() - t0)
+            for label, (proc, tmp, target, t0) in jobs.items()}
     report = {}
-    for name, (output, returncode, tmp, target, seconds) in done.items():
+    for label, (output, returncode, tmp, target, seconds) in done.items():
         if returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}.cu:\n{output}")
+            raise RuntimeError(f"nvcc failed for {label}:\n{output}")
+        target.with_suffix(".ptxas").write_text(output)
         os.replace(tmp, target)
-        report[name] = (seconds, output)
+        report[label] = (seconds, output)
     return report
 
 
+def ptxas_output(name, source=None):
+    """nvcc's output from the build of that library (as for
+    ``library_path``), kept beside it; "" if it was not built here."""
+    log = library_path(name, source).with_suffix(".ptxas")
+    return log.read_text() if log.exists() else ""
+
+
 @functools.lru_cache(maxsize=None)
-def load(name):
-    """The built library ``name`` with its launchers' signatures set."""
-    build((name,))
-    lib = ctypes.CDLL(str(library_path(name)))
+def load(name, source=None):
+    """The built library ``name`` (from ``source``, as for
+    ``library_path``) with its launchers' signatures set."""
+    build((), [(name, name, source)])
+    lib = ctypes.CDLL(str(library_path(name, source)))
     for fn, (argtypes, restype) in SIGNATURES[name].items():
         getattr(lib, fn).argtypes = argtypes
         getattr(lib, fn).restype = restype
     return lib
+
+
+def _short_name(mangled):
+    """``_ZN<namespace>20attention_mma_kernelILi4ELi13EEEv...`` ->
+    ``attention_mma_kernel<4,13>``: the kernel's name and the integer and
+    bool arguments of its template, so the build's ptxas report names
+    each template instance legibly."""
+    m = re.match(r"_ZN?", mangled)
+    if not m:
+        return mangled
+    pos, name = m.end(), mangled
+    while (m := re.match(r"\d+", mangled[pos:])):
+        size = int(m.group())
+        name = mangled[pos + m.end():pos + m.end() + size]
+        pos += m.end() + size
+    rest = mangled[pos:]
+    if not rest.startswith("I"):
+        return name
+    args = re.findall(r"L[a-z](\d+)E", rest[:rest.find("EE") + 2])
+    return f"{name}<{','.join(args)}>"
+
+
+def ptxas_report(output):
+    """[(kernel, registers, spill store bytes, spill load bytes)] of every
+    kernel instance in nvcc's ``-Xptxas -v`` output."""
+    rows, current, spills = [], None, (0, 0)
+    for line in output.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?([\w$]+)'?", line)
+        if m:
+            current = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and current:
+            rows.append((_short_name(current), int(m.group(1)), *spills))
+            current, spills = None, (0, 0)
+    return rows

@@ -12,32 +12,56 @@
 // move q, k, v and out once, 4 * N*H*L*D * 2 B = 310 MB (0.093 ms at
 // 3.35 TB/s), and do 4 * N*H*L^2*D = 30.5 GFLOP (0.031 ms at 989 TFLOP/s):
 // it is bound by bytes.  The (L, L) scores (477 MB in f32 at that shape)
-// must therefore never reach device memory.
-// Design: the TPU kernel holds one image, all heads, in VMEM (~300 KB); a
-// block has 227 KB of shared memory, and one head's f32 score tile alone is
-// 155 KB at L = 197.  So each block owns one (image, head, 64 query rows)
-// and stages that head's K and V in shared memory (25 KB each at L = 197,
-// D = 64; 41 KB at L = 257, D = 80).  The scores live in registers, one
-// 16 x 8 tile at a time, in two passes over the keys:
-//   pass 1: s tile by tile, a running row max and rescaled row sum;
-//   pass 2: s again (the same instructions, so the same bits), p = e / sum
-//           rounded to bf16 in registers, then p . V.
-// Normalising before the rounding of p keeps the TPU kernel's order (a
-// flash-style "divide after p . V" kernel computes something else), at the
-// price of computing q . k^T twice, which the byte bound leaves room for.
-// Ragged L: keys past L are masked to -inf and K/V rows past L are zero in
-// shared memory; query rows past L are read as zero and never stored.
+// must therefore never reach device memory, and K and V should be read
+// from device memory once per head.
 //
-// Two engines:
-//   bf16: warp-level tensor-core MMA (mma.sync m16n8k16, f32 accumulate);
-//         a warp owns 16 query rows; D = 16 * DK, DK = 1..8 (a template);
-//   f32:  scalar FMAs (the f32 parity path; TF32 would break its 1e-5),
-//         a warp walks 8 query rows one at a time, lanes split the keys for
-//         the scores and the channels for p . V.
-// wgmma, TMA and several heads per block are later work.
+// bf16 engine (the main path).  One block per (image, head): it stages the
+// head's K and V in shared memory once (row pitch D + 8, so ldmatrix is
+// conflict-free; 30 KB each at L = 197, D = 64), by cp.async 16-byte copies
+// in two commit groups, K's then V's, so V lands while the first query
+// tiles run QK^T and the softmax.  Its warps walk the head's 16-row query
+// tiles.  A warp
+//   1. computes the whole row of scores of its 16 rows with mma.sync
+//      m16n8k16 (K fragments by ldmatrix) and keeps them in registers:
+//      L_pad / 2 floats a thread, 104 at L = 197 and 136 at L = 257;
+//   2. takes the row max and the row sum (one quad shuffle reduction
+//      each), with e = exp2(s * log2(e)/sqrt(D) - max * log2(e)/sqrt(D))
+//      (ex2.approx: one MUFU op per score) and one reciprocal per row;
+//   3. rounds p = e * (1 / sum) to bf16 in place: a C tile of the scores is
+//      the A fragment of p . V, so p never leaves registers;
+//   4. runs p . V (V fragments by ldmatrix.trans) and stores its rows.
+// So QK^T runs once and p is normalised before it is rounded, as on the
+// TPU (a flash-style "divide after p . V" kernel computes something else).
+// exp2 with the folded scale and the reciprocal move e and p by a few f32
+// ulps before p's bf16 rounding; the bf16 gate (one bf16 ulp of the
+// output) holds that unchanged.  The kernel is templated on the 16-key
+// tiles a row keeps in registers (KT = 8, 13, 17: L <= 128, 208, 272; the
+// MAE lengths 197 and 257 fill 13 and 17 exactly).  A longer row takes two
+// passes over the keys with the same feeds: row max and rescaled sum, then
+// the scores again (the same instructions, so the same bits), p and p . V.
+// Ragged L: keys past L are -inf, K/V rows past L are zero in shared
+// memory (cp.async zero-fill), query rows past L are read as zero and
+// never stored.  D = 16 * DK, DK = 1..8, is a template.
+//
+// f32 engine (the parity path; TF32 would break its 1e-5): scalar FMAs, one
+// block per (image, head, 64 query rows), a warp walks 8 query rows one at
+// a time, lanes split the keys for the scores and the channels for p . V.
 //
 // Strides are in elements and D's stride is 1, so a caller can pass
 // (N, L, H, D)-ordered views of a fused qkv projection without copies.
+//
+// Measured on an H100 80GB HBM3 at 700 W, batch 256 on the strided qkv
+// views (pvr_habitat_tpu_torch/tools/attention_tilings.py, and builds of
+// this source with other values of kWarpsMma and kMinBlocksMma): 0.19 ms a
+// launch at mae_base against SDPA's 0.17 and the earlier two-pass
+// kernel's 0.88; 0.51 ms at mae_huge against SDPA's 0.60.  That is twice
+// the byte bound, and no one part holds it there: variants that leave out
+// the QK^T products, the p . V products, the K/V loads or the
+// exponentials are 18%, 11%, 11% and 2% faster.  4 warps a block with 3
+// blocks an SM (168 registers) beat 5 or 6 warps with 2 blocks and 8
+// warps with 1; sharing the 13th query tile among the warps, tree-shaped
+// row reductions and wgmma (m64n16k16) for both products did not help.
+// PERF.md has the numbers.
 //
 // Plain C interface, loaded with ctypes: the launcher returns the
 // cudaError_t of the launch (0 on success).
@@ -49,11 +73,27 @@
 
 namespace {
 
-constexpr int kRowsBlock = 64;   // query rows per block, both engines
-constexpr int kThreadsMma = 128; // 4 warps x 16 rows
+constexpr int kRowsBlock = 64;   // query rows per block, f32 engine
+// Tiling of the bf16 engine: warps a block, and blocks an SM that
+// __launch_bounds__ asks for (rows of up to 13 key tiles, and two passes).
+constexpr int kWarpsMma = 4;
+constexpr int kThreadsMma = 32 * kWarpsMma;
+constexpr int kMinBlocksMma = 3;
+// A row of 17 key tiles holds 136 scores a thread: leave it ~176 registers.
+constexpr int kMinBlocksLong =
+    65536 / (kThreadsMma * 176) > 0 ? 65536 / (kThreadsMma * 176) : 1;
 constexpr int kPadMma = 8;       // bf16 shared-memory row pitch is D + 8
+// Blocks an SM holds (65536 registers, 228 KB of shared memory with 1 KB
+// reserved a block) asked of __launch_bounds__ for a row of KT held tiles:
+// no more than the shared memory of 16 * KT rows of K and V allows.
+constexpr int min_blocks(int kt, int d) {
+  const int want = kt > 13 ? kMinBlocksLong : kMinBlocksMma;
+  const int fit = kt ? 233472 / (4 * 16 * kt * (d + kPadMma) + 1024) : want;
+  return fit < 1 ? 1 : fit < want ? fit : want;
+}
 constexpr int kThreadsF32 = 256; // 8 warps x 8 rows
 constexpr int kWarpsF32 = kThreadsF32 / 32;
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct Strides {
   long long n, h, l;
@@ -76,8 +116,11 @@ struct Args {
 //   A regs: (g, 2t..2t+1), (g+8, 2t..2t+1), (g, 2t+8..2t+9), (g+8, 2t+8..)
 //   B regs: (k = 2t..2t+1, n = g), (k = 2t+8..2t+9, n = g)
 //   C regs: (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1)
-// A C tile of the scores (rows g / g+8, keys 2t, 2t+1) is exactly the A
-// fragment of p for p . V, so p never leaves registers.
+// The C tiles of the scores for keys 16kt..16kt+7 and 16kt+8..16kt+15 are
+// together the A fragment of p for those 16 keys in p . V.
+// ldmatrix.x4: lanes 8i..8i+7 give the row addresses of 8x8 matrix i, and
+// register i of every lane receives matrix i in the A/B layout above
+// (.trans: transposed).
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
@@ -89,15 +132,47 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Two bf16 one row apart, packed low-first.
-__device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* p, int ld) {
-  const uint32_t lo = *reinterpret_cast<const unsigned short*>(p);
-  const uint32_t hi = *reinterpret_cast<const unsigned short*>(p + ld);
-  return lo | (hi << 16);
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// 16-byte global -> shared copy that skips L1; src_bytes = 0 writes zeros.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// 2^x in one MUFU op; 2^-inf = 0.
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -105,130 +180,265 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// exp(s - m) with a row max of -inf (no key seen yet) giving 0.
-__device__ __forceinline__ float rescale(float m, float m_new) {
-  return m == -INFINITY ? 0.f : expf(m - m_new);
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
 }
 
-template <int DK>
-__global__ void __launch_bounds__(kThreadsMma)
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// exp(s_old - s_new) for unscaled maxima, with "no key seen yet" (-inf)
+// giving 0.
+__device__ __forceinline__ float rescale(float m, float m_new, float c) {
+  return m == -INFINITY ? 0.f : exp2_approx((m - m_new) * c);
+}
+
+// Rows 0 .. lp-1 of one head's K or V into shared memory at pitch D + 8,
+// rows past L zero.
+template <int D>
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst,
+                                           const __nv_bfloat16* src,
+                                           long long ld, int L, int lp) {
+  constexpr int kChunks = D / 8, P = D + kPadMma;
+  for (int i = threadIdx.x; i < lp * kChunks; i += kThreadsMma) {
+    const int row = i / kChunks, c = (i % kChunks) * 8;
+    const bool in = row < L;
+    cp_async16(dst + row * P + c, in ? src + row * ld + c : src, in ? 16 : 0);
+  }
+}
+
+// KT > 0: a row of up to 16 * KT keys is held in registers, one QK^T pass.
+// KT = 0: any length, two passes over the keys.
+template <int DK, int KT>
+__global__ void __launch_bounds__(kThreadsMma, min_blocks(KT, 16 * DK))
 attention_mma_kernel(const Args<__nv_bfloat16> args) {
   using T = __nv_bfloat16;
   constexpr int D = 16 * DK, DN = 2 * DK, P = D + kPadMma;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int L = args.l, Lp = (L + 15) & ~15;
-  const int head = blockIdx.y, n = blockIdx.z;
-  T* ks = reinterpret_cast<T*>(smem_raw);  // [Lp][P]
-  T* vs = ks + Lp * P;                     // [Lp][P]
+  const int L = args.l, nkt = (L + 15) >> 4;  // 16-row / 16-key tiles
+  const int rows = KT > 0 ? 16 * KT : 16 * nkt;  // K and V rows staged
+  const int head = blockIdx.x, n = blockIdx.y;
+  T* ks = reinterpret_cast<T*>(smem_raw);  // [rows][P]
+  T* vs = ks + rows * P;                   // [rows][P]
 
-  // ---- stage this head's K and V, 16 bytes at a time; zero past L -------
-  {
-    const T* kg = args.k + n * args.sk.n + head * args.sk.h;
-    const T* vg = args.v + n * args.sv.n + head * args.sv.h;
-    constexpr int kChunks = D / 8;
-    for (int i = threadIdx.x; i < Lp * kChunks; i += kThreadsMma) {
-      const int row = i / kChunks, c = (i % kChunks) * 8;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-      if (row < L) {
-        kv = *reinterpret_cast<const uint4*>(kg + row * args.sk.l + c);
-        vv = *reinterpret_cast<const uint4*>(vg + row * args.sv.l + c);
-      }
-      *reinterpret_cast<uint4*>(ks + row * P + c) = kv;
-      *reinterpret_cast<uint4*>(vs + row * P + c) = vv;
-    }
-  }
-  __syncthreads();
+  stage_rows<D>(ks, args.k + n * args.sk.n + head * args.sk.h, args.sk.l, L,
+                rows);
+  cp_async_commit();
+  stage_rows<D>(vs, args.v + n * args.sv.n + head * args.sv.h, args.sv.l, L,
+                rows);
+  cp_async_commit();
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int r0 = blockIdx.x * kRowsBlock + warp * 16;
-  if (r0 >= L) return;  // warp-uniform; no barrier follows
-  const int ra = r0 + g, rb = r0 + g + 8;
+  // This lane's ldmatrix row in a 16 x 16 tile of K (keys x channels:
+  // matrices (keys 0-7, 8-15) x (channels 0-7, 8-15) in the order b0, b1 of
+  // the first 8 keys, then of the next 8) and of V (.trans, the order b0,
+  // b1 of channels 0-7, then of channels 8-15).
+  const T* kl = ks + ((lane >> 4) * 8 + (lane & 7)) * P + ((lane >> 3) & 1) * 8;
+  const T* vl = vs + (((lane >> 3) & 1) * 8 + (lane & 7)) * P + (lane >> 4) * 8;
+  const T* qg = args.q + n * args.sq.n + head * args.sq.h + 2 * t;
+  T* og = args.out + n * args.so.n + head * args.so.h + 2 * t;
+  const float c = args.scale * kLog2e;  // exp(x * scale) = 2^(x * c)
 
-  // ---- this warp's 16 query rows as A fragments --------------------------
-  uint32_t qf[DK][4];
-  {
-    const T* qg = args.q + n * args.sq.n + head * args.sq.h + 2 * t;
-    const T* qa = qg + (long long)min(ra, L - 1) * args.sq.l;
-    const T* qb = qg + (long long)min(rb, L - 1) * args.sq.l;
+  // The A fragments of query rows r + g and r + g + 8; zero past L.
+  auto load_q = [&](uint32_t(&f)[DK][4], int r) {
+    const int ra = r + g, rb = ra + 8;
+    const unsigned* qa = reinterpret_cast<const unsigned*>(
+        qg + (long long)min(ra, L - 1) * args.sq.l);
+    const unsigned* qb = reinterpret_cast<const unsigned*>(
+        qg + (long long)min(rb, L - 1) * args.sq.l);
 #pragma unroll
     for (int kk = 0; kk < DK; ++kk) {
-      qf[kk][0] = ra < L ? ld32(qa + 16 * kk) : 0u;
-      qf[kk][1] = rb < L ? ld32(qb + 16 * kk) : 0u;
-      qf[kk][2] = ra < L ? ld32(qa + 16 * kk + 8) : 0u;
-      qf[kk][3] = rb < L ? ld32(qb + 16 * kk + 8) : 0u;
+      f[kk][0] = ra < L ? __ldg(qa + 8 * kk) : 0u;
+      f[kk][1] = rb < L ? __ldg(qb + 8 * kk) : 0u;
+      f[kk][2] = ra < L ? __ldg(qa + 8 * kk + 4) : 0u;
+      f[kk][3] = rb < L ? __ldg(qb + 8 * kk + 4) : 0u;
     }
-  }
-
-  // s for keys 8j .. 8j+7: scaled, -inf past L.
-  auto scores = [&](int j, float (&s)[4]) {
-    s[0] = s[1] = s[2] = s[3] = 0.f;
-    const T* kr = ks + (j * 8 + g) * P + 2 * t;
-#pragma unroll
-    for (int kk = 0; kk < DK; ++kk)
-      mma_bf16(s, qf[kk], ld32(kr + 16 * kk), ld32(kr + 16 * kk + 8));
-    const int col = j * 8 + 2 * t;
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      s[e] = col + (e & 1) < L ? s[e] * args.scale : -INFINITY;
   };
 
-  // ---- pass 1: row max and row sum of exp(s - max) -----------------------
-  // [0] is row g, [1] row g + 8; each thread sees keys 2t, 2t+1 of a tile.
-  float m[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
-  for (int j = 0; j < Lp / 8; ++j) {
-    float s[4];
-    scores(j, s);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float mn = fmaxf(m[h], fmaxf(s[2 * h], s[2 * h + 1]));
-      if (mn == -INFINITY) continue;
-      sum[h] = sum[h] * rescale(m[h], mn) + expf(s[2 * h] - mn) +
-               expf(s[2 * h + 1] - mn);
-      m[h] = mn;
-    }
-  }
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-#pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {  // merge the quad's keys
-      const float mo = __shfl_xor_sync(0xffffffffu, m[h], off);
-      const float so = __shfl_xor_sync(0xffffffffu, sum[h], off);
-      const float mn = fmaxf(m[h], mo);
-      sum[h] = sum[h] * rescale(m[h], mn) + so * rescale(mo, mn);
-      m[h] = mn;
-    }
+  uint32_t qf[DK][4];
+  load_q(qf, 16 * warp);
 
-  // ---- pass 2: p = e / sum rounded to bf16, out = p . V ------------------
-  float o[DN][4];
+  // Unscaled scores of keys 16kt .. 16kt+7 (s[0]) and 16kt+8 .. 16kt+15
+  // (s[1]).
+  auto qk_tile = [&](int kt, float(&s)[2][4]) {
 #pragma unroll
-  for (int dn = 0; dn < DN; ++dn)
-    o[dn][0] = o[dn][1] = o[dn][2] = o[dn][3] = 0.f;
-  for (int kt = 0; kt < Lp / 16; ++kt) {
-    float s0[4], s1[4];
-    scores(2 * kt, s0);
-    scores(2 * kt + 1, s1);
-    uint32_t pf[4];
-    pf[0] = pack_bf16(expf(s0[0] - m[0]) / sum[0], expf(s0[1] - m[0]) / sum[0]);
-    pf[1] = pack_bf16(expf(s0[2] - m[1]) / sum[1], expf(s0[3] - m[1]) / sum[1]);
-    pf[2] = pack_bf16(expf(s1[0] - m[0]) / sum[0], expf(s1[1] - m[0]) / sum[0]);
-    pf[3] = pack_bf16(expf(s1[2] - m[1]) / sum[1], expf(s1[3] - m[1]) / sum[1]);
-    const T* vr = vs + (kt * 16 + 2 * t) * P + g;
+    for (int e = 0; e < 4; ++e) s[0][e] = s[1][e] = 0.f;
+    const T* kr = kl + kt * 16 * P;
+#pragma unroll
+    for (int kk = 0; kk < DK; ++kk) {
+      uint32_t b[4];
+      ldmatrix_x4(b, kr + 16 * kk);
+      mma_bf16(s[0], qf[kk], b[0], b[1]);
+      mma_bf16(s[1], qf[kk], b[2], b[3]);
+    }
+  };
+  // Keys past L to -inf, in a tile that reaches past L.
+  auto mask_tile = [&](int kt, float(&s)[2][4]) {
+    if (16 * kt + 16 > L) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (16 * kt + 8 * h + 2 * t + (e & 1) >= L) s[h][e] = -INFINITY;
+    }
+  };
+
+  // o += p . V for keys 16kt .. 16kt+15; pf is p's A fragment.
+  auto pv_tile = [&](int kt, const uint32_t(&pf)[4], float(&o)[DN][4]) {
+    const T* vr = vl + kt * 16 * P;
+#pragma unroll
+    for (int dk = 0; dk < DK; ++dk) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, vr + 16 * dk);
+      mma_bf16(o[2 * dk], pf, b[0], b[1]);
+      mma_bf16(o[2 * dk + 1], pf, b[2], b[3]);
+    }
+  };
+
+  cp_async_wait<1>();
+  __syncthreads();  // K is in shared memory
+
+  for (int tile = warp;; tile += kWarpsMma) {
+    const bool have = tile < nkt;
+    // [0] is row g of the tile, [1] row g + 8.
+    float mc[2], inv[2];  // row max times c, 1 / row sum
+    uint32_t pf[KT > 0 ? KT : 1][4];
+    if (have) {
+      if constexpr (KT > 0) {
+        // All KT tiles, with no branch between their products (a guard
+        // per tile serialises each tile's chain of mma and keeps a tile
+        // that may be undefined live beside its packed p).  Rows past L are
+        // zero in shared memory, and their keys are masked after the
+        // products.
+        float s[KT][2][4];
+#pragma unroll
+        for (int kt = 0; kt < KT; ++kt) qk_tile(kt, s[kt]);
+#pragma unroll
+        for (int kt = 0; kt < KT; ++kt) mask_tile(kt, s[kt]);
+        float m[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int kt = 0; kt < KT; ++kt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              m[e >> 1] = fmaxf(m[e >> 1], s[kt][h][e]);
+        float sum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int r = 0; r < 2; ++r) mc[r] = quad_max(m[r]) * c;
+#pragma unroll
+        for (int kt = 0; kt < KT; ++kt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              s[kt][h][e] = exp2_approx(fmaf(s[kt][h][e], c, -mc[e >> 1]));
+              sum[e >> 1] += s[kt][h][e];
+            }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) inv[r] = 1.f / quad_sum(sum[r]);
+#pragma unroll
+        for (int kt = 0; kt < KT; ++kt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int r = 0; r < 2; ++r)
+              pf[kt][2 * h + r] = pack_bf16(s[kt][h][2 * r] * inv[r],
+                                            s[kt][h][2 * r + 1] * inv[r]);
+      } else {
+        // Pass 1: running row max and rescaled row sum, then merge the
+        // quad's keys.
+        float m[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
+        for (int kt = 0; kt < nkt; ++kt) {
+          float s[2][4];
+          qk_tile(kt, s);
+          mask_tile(kt, s);
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const float mn =
+                fmaxf(fmaxf(m[r], fmaxf(s[0][2 * r], s[0][2 * r + 1])),
+                      fmaxf(s[1][2 * r], s[1][2 * r + 1]));
+            if (mn == -INFINITY) continue;
+            const float nc = -mn * c;
+            sum[r] = sum[r] * rescale(m[r], mn, c) +
+                     exp2_approx(fmaf(s[0][2 * r], c, nc)) +
+                     exp2_approx(fmaf(s[0][2 * r + 1], c, nc)) +
+                     exp2_approx(fmaf(s[1][2 * r], c, nc)) +
+                     exp2_approx(fmaf(s[1][2 * r + 1], c, nc));
+            m[r] = mn;
+          }
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+#pragma unroll
+          for (int off = 1; off < 4; off <<= 1) {
+            const float mo = __shfl_xor_sync(0xffffffffu, m[r], off);
+            const float so = __shfl_xor_sync(0xffffffffu, sum[r], off);
+            const float mn = fmaxf(m[r], mo);
+            sum[r] = sum[r] * rescale(m[r], mn, c) + so * rescale(mo, mn, c);
+            m[r] = mn;
+          }
+          mc[r] = m[r] * c;
+          inv[r] = 1.f / sum[r];
+        }
+      }
+    }
+    if (tile == warp) {  // every warp's first iteration: V has landed
+      cp_async_wait<0>();
+      __syncthreads();
+    }
+    if (!have) break;
+
+    // The next tile's query rows load under this tile's p . V.
+    const int next = tile + kWarpsMma;
+    uint32_t qn[DK][4];
+    if (next < nkt) load_q(qn, 16 * next);
+
+    float o[DN][4];
 #pragma unroll
     for (int dn = 0; dn < DN; ++dn)
-      mma_bf16(o[dn], pf, ld_pair(vr + dn * 8, P),
-               ld_pair(vr + 8 * P + dn * 8, P));
-  }
-
-  T* og = args.out + n * args.so.n + head * args.so.h + 2 * t;
+      o[dn][0] = o[dn][1] = o[dn][2] = o[dn][3] = 0.f;
+    if constexpr (KT > 0) {
 #pragma unroll
-  for (int dn = 0; dn < DN; ++dn) {
-    if (ra < L)
-      *reinterpret_cast<__nv_bfloat162*>(og + ra * args.so.l + dn * 8) =
-          __floats2bfloat162_rn(o[dn][0], o[dn][1]);
-    if (rb < L)
-      *reinterpret_cast<__nv_bfloat162*>(og + rb * args.so.l + dn * 8) =
-          __floats2bfloat162_rn(o[dn][2], o[dn][3]);
+      for (int kt = 0; kt < KT; ++kt) pv_tile(kt, pf[kt], o);
+    } else {
+      // Pass 2: the scores again, p = e / sum rounded to bf16, p . V.
+      for (int kt = 0; kt < nkt; ++kt) {
+        float s[2][4];
+        qk_tile(kt, s);
+        mask_tile(kt, s);
+        uint32_t p[4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+            p[2 * h + r] = pack_bf16(
+                exp2_approx(fmaf(s[h][2 * r], c, -mc[r])) * inv[r],
+                exp2_approx(fmaf(s[h][2 * r + 1], c, -mc[r])) * inv[r]);
+        pv_tile(kt, p, o);
+      }
+    }
+
+    const int ra = 16 * tile + g, rb = ra + 8;
+#pragma unroll
+    for (int dn = 0; dn < DN; ++dn) {
+      if (ra < L)
+        *reinterpret_cast<__nv_bfloat162*>(og + ra * args.so.l + dn * 8) =
+            __floats2bfloat162_rn(o[dn][0], o[dn][1]);
+      if (rb < L)
+        *reinterpret_cast<__nv_bfloat162*>(og + rb * args.so.l + dn * 8) =
+            __floats2bfloat162_rn(o[dn][2], o[dn][3]);
+    }
+    if (next < nkt) {
+#pragma unroll
+      for (int kk = 0; kk < DK; ++kk)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) qf[kk][e] = qn[kk][e];
+    }
   }
 }
 
@@ -311,8 +521,16 @@ attention_f32_kernel(const Args<float> args) {
 // Launch
 // ---------------------------------------------------------------------------
 
+// The 16-key tiles a row of L keys keeps in registers (0: two passes).
+int held_tiles(int l) {
+  const int nkt = (l + 15) / 16;
+  return nkt <= 8 ? 8 : nkt <= 13 ? 13 : nkt <= 17 ? 17 : 0;
+}
+
 size_t smem_mma(int l, int d) {
-  return (size_t)2 * ((l + 15) & ~15) * (d + kPadMma) * sizeof(__nv_bfloat16);
+  const int kt = held_tiles(l);
+  const size_t rows = kt ? 16 * kt : (l + 15) & ~15;
+  return 2 * rows * (d + kPadMma) * sizeof(__nv_bfloat16);
 }
 
 size_t smem_f32(int l, int d) {
@@ -321,12 +539,11 @@ size_t smem_f32(int l, int d) {
 }
 
 template <typename Kernel, typename A>
-int launch(Kernel kernel, const A& a, size_t smem, int n, int h,
+int launch(Kernel kernel, const A& a, size_t smem, dim3 grid,
            cudaStream_t stream, int threads) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((a.l + kRowsBlock - 1) / kRowsBlock, h, n);
   kernel<<<grid, threads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
@@ -349,10 +566,21 @@ Args<T> make_args(const void* q, const void* k, const void* v, void* out,
   return a;
 }
 
+template <int DK, int KT>
+int launch_mma_kt(const Args<__nv_bfloat16>& a, int n, int h,
+                  cudaStream_t s) {
+  return launch(attention_mma_kernel<DK, KT>, a, smem_mma(a.l, a.d),
+                dim3(h, n), s, kThreadsMma);
+}
+
 template <int DK>
 int launch_mma(const Args<__nv_bfloat16>& a, int n, int h, cudaStream_t s) {
-  return launch(attention_mma_kernel<DK>, a, smem_mma(a.l, a.d), n, h, s,
-                kThreadsMma);
+  switch (held_tiles(a.l)) {
+    case 8: return launch_mma_kt<DK, 8>(a, n, h, s);
+    case 13: return launch_mma_kt<DK, 13>(a, n, h, s);
+    case 17: return launch_mma_kt<DK, 17>(a, n, h, s);
+    default: return launch_mma_kt<DK, 0>(a, n, h, s);
+  }
 }
 
 }  // namespace
@@ -371,7 +599,8 @@ int fused_attention_launch(int dtype, const void* q, const void* k,
   if (dtype == 0)
     return launch(attention_f32_kernel,
                   make_args<float>(q, k, v, out, strides, l, d, scale),
-                  smem_f32(l, d), n, h, s, kThreadsF32);
+                  smem_f32(l, d), dim3((l + kRowsBlock - 1) / kRowsBlock, h, n),
+                  s, kThreadsF32);
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   const Args<__nv_bfloat16> a =
       make_args<__nv_bfloat16>(q, k, v, out, strides, l, d, scale);

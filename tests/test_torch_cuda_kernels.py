@@ -94,6 +94,43 @@ def test_fused_attention_matches_plain_version(dtype, shape):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (2, 4, 128, 64),      # 8 key tiles: the smallest register-held row, full
+    (2, 4, 208, 64),      # 13 tiles, full: the row mae_base's L = 197 takes
+    (2, 4, 256, 64),      # 16 tiles in the 17-tile row
+    (2, 4, 272, 80),      # 17 tiles: the longest register-held row
+    (2, 4, 272, 128),     # ... at the widest head
+    (2, 4, 600, 64),      # past 17 tiles: two passes over the keys
+    (2, 2, 1000, 16),     # two passes, ragged
+])
+def test_fused_attention_bf16_tile_edges(shape):
+    """The bf16 engine at the edges of its tiling, against the plain
+    version at the bf16 tolerance above."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    rng = np.random.RandomState(13)
+    q, k, v = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
+               .to("cuda", torch.bfloat16) for _ in range(3))
+    got = fa.fused_attention(q, k, v)
+    torch.cuda.synchronize()
+    want = fa.fused_attention_ref(q, k, v)
+    atol, rtol = ATTN_TOL[torch.bfloat16]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 40, 144])
+def test_fused_attention_rejects_head_dims(d):
+    """D must be a multiple of 16 up to 128."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    q = torch.zeros(1, 2, 32, d, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.fused_attention(q, q, q)
+
+
+@pytest.mark.cuda
 def test_fused_attention_reads_strided_qkv_views():
     """The ViT call site passes (N, L, H, D)-ordered views of one qkv
     product; the kernel reads them in place and matches the copies."""
