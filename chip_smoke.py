@@ -14,7 +14,8 @@ Phases, each fatal on failure:
 1. device: the card's name and power limit;
 2. build: nvcc compiles ``ops/cuda/csrc/*.cu`` into ``build/kernels``,
    one process per source, all started together, and prints each kernel
-   instance's registers and spill bytes from ptxas;
+   instance's registers and spill bytes from ptxas; the bf16 bottleneck
+   kernel's v1 and v2 instances (``BF16_INSTANCES``) must be among them;
 3. kernels: both fused-bottleneck kernels against their plain versions
    at every ResNet-50 block shape, in f32 (TF32 off, batch 8, 1e-4) and
    in bf16 (batch 256, per-image cosine gate), with the v2 border; the
@@ -81,6 +82,8 @@ ATTENTION = [("mae_base", 12, 197, 64, 12),
 ATTENTION_EDGES = [(2, 4, 128, 64), (2, 4, 256, 64), (2, 4, 272, 80),
                    (2, 4, 600, 64)]
 MAE_LAUNCHES = {"fused_attention": 12}
+# The bf16 engine of fused_bottleneck.cu, FLAT = false (v1) and true (v2).
+BF16_INSTANCES = {"bottleneck_mma_kernel<0>", "bottleneck_mma_kernel<1>"}
 # kernel -> (TPU kernel it replaces, CUDA source)
 KERNELS = {
     "fused_bottleneck": (
@@ -440,14 +443,18 @@ def main():
 
     t0 = phase("2 build")
     report = build.build()
+    instances = set()
     for name in build.SIGNATURES:
         build.load(name)
         print(f"built {name} in {report[name][0]:.1f} s" if name in report
               else f"{name} was built before this run")
         for kernel, regs, stores, loads in build.ptxas_report(
                 build.ptxas_output(name)):
+            instances.add(kernel)
             print(f"  ptxas: {kernel}: {regs} registers, spill stores "
                   f"{stores} B, loads {loads} B")
+    if not BF16_INSTANCES <= instances:
+        raise AssertionError(f"ptxas reports no {BF16_INSTANCES - instances}")
     print(f"build phase {time.perf_counter() - t0:.1f} s")
 
     # Real ResNet-50 weights (seeded init, BN folded) for every block.

@@ -116,6 +116,15 @@ class EmbeddingNet:
 
     # -- persistence (keeps the '{embedding}.tar' contract) ------------------
 
+    def state_dict(self):
+        """The params as a flat dict of f32 numpy arrays in the JAX
+        package's layout (HWIO convs), as its ``state_dict`` gives them."""
+        return convert.params_to_numpy(self.params)
+
+    def load_state_dict(self, flat):
+        """Params from a flat dict in the JAX package's layout."""
+        self.params = convert.params_from_numpy(flat, self.device)
+
     def save(self, path):
         convert.save_flat(path, self.params,
                           extra={"embedding_name": self.embedding_name})

@@ -27,6 +27,10 @@ MAX_SMEM = 232448
 SMEM_PER_SM = 233472
 _TILES = (14, 8, 7, 4, 2, 1)
 _PAD = 8  # shared-memory row pitch is P + 8 (kPad in the .cu)
+# The least weight ring of the bf16 kernel, after y1 and y2: two chunks of
+# 32 weight rows at pitch 256 + 8 (kRingBytes in the .cu, which grows the
+# ring into the shared memory that the block's occupancy leaves free).
+RING_BYTES = 2 * 32 * (256 + _PAD) * 2
 # Rows of one job: a bf16 warp's 2 x 16 MMA rows, an f32 thread's 8.
 _JOB_ROWS = {2: 32, 4: 8}
 
@@ -95,11 +99,19 @@ def fused_bottleneck_flat_ref(x_flat, mask, w1, b1, w2, b2, w3, b3, wd=None,
 # -----------------------------------------------------------------------------
 
 
+def smem_bytes(t, stride, p, itemsize):
+    """Shared memory of one block at tile side ``t``: y1 on the halo and
+    y2 at pitch P + 8, and in bf16 the weight ring."""
+    hs = (t - 1) * stride + 3
+    ring = RING_BYTES if itemsize == 2 else 0
+    return (hs * hs + t * t) * (p + _PAD) * itemsize + ring
+
+
 def pick_tile(ho, stride, cin, p, cout, has_downsample, itemsize):
     """Output tile side T for one block: the least FLOP including conv1's
     halo recompute, the ragged edge and the rows that pad each stage to
-    whole jobs, among the tiles whose halo and y2 fit in shared memory; a
-    tile too large for two blocks per SM pays a quarter more.  A first
+    whole jobs, among the tiles whose shared memory (``smem_bytes``) fits;
+    a tile too large for two blocks per SM pays a quarter more.  A first
     guess, to be tuned on the card."""
 
     def rows(m):
@@ -110,7 +122,7 @@ def pick_tile(ho, stride, cin, p, cout, has_downsample, itemsize):
         if t > ho:
             continue
         hs = (t - 1) * stride + 3
-        smem = (hs * hs + t * t) * (p + _PAD) * itemsize
+        smem = smem_bytes(t, stride, p, itemsize)
         if smem > MAX_SMEM:
             continue
         tiles = math.ceil(ho / t) ** 2
@@ -170,10 +182,14 @@ def _raise_on(lib, err, name):
                            f"{lib.fused_bottleneck_error_string(err).decode()}")
 
 
-def fused_bottleneck(x, w1, b1, w2, b2, w3, b3, wd=None, bd=None, stride=1):
+def fused_bottleneck(x, w1, b1, w2, b2, w3, b3, wd=None, bd=None, stride=1,
+                     lib=None):
     """x: (N, H, W, Cin) f32 or bf16.  w1 (Cin, P), w2 (9, P, P), w3
     (P, Cout), wd (Cin, Cout) or None, in x's dtype; biases f32.
-    Returns (N, H/s, W/s, Cout)."""
+    Returns (N, H/s, W/s, Cout).  ``lib`` exists only for
+    ``tools/bottleneck_variants.py``, which launches other builds of the
+    kernel (``build.load`` with a source of its own) to time them against
+    the tree's; every other caller leaves it unset."""
     if x.device.type == "cpu":
         return fused_bottleneck_ref(x, w1, b1, w2, b2, w3, b3, wd, bd, stride)
     if x.device.type != "cuda":
@@ -194,9 +210,10 @@ def fused_bottleneck(x, w1, b1, w2, b2, w3, b3, wd=None, bd=None, stride=1):
                      x.element_size())
     out = torch.empty((n, ho, wo, cout), dtype=x.dtype, device=x.device)
 
-    from pvr_habitat_tpu_torch.ops.cuda import build
+    if lib is None:
+        from pvr_habitat_tpu_torch.ops.cuda import build
 
-    lib = build.load("fused_bottleneck")
+        lib = build.load("fused_bottleneck")
     with torch.cuda.device(x.device):
         err = lib.fused_bottleneck_launch(
             _DTYPE_CODE[x.dtype], x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
@@ -209,12 +226,12 @@ def fused_bottleneck(x, w1, b1, w2, b2, w3, b3, wd=None, bd=None, stride=1):
 
 
 def fused_bottleneck_flat(x_flat, mask, w1, b1, w2, b2, w3, b3, wd=None,
-                          bd=None, *, h, w):
+                          bd=None, *, h, w, lib=None):
     """Stride-1 fused bottleneck over padded-flat activations.
 
     x_flat: (N, (H+2)(W+2), Cin) with zeroed borders; mask (PHW, 1) f32
     from ``flat_mask``.  Returns the same layout with Cout channels and a
-    zero border."""
+    zero border.  ``lib`` as for ``fused_bottleneck``."""
     if x_flat.device.type == "cpu":
         return fused_bottleneck_flat_ref(x_flat, mask, w1, b1, w2, b2, w3,
                                          b3, wd, bd, h=h, w=w)
@@ -236,9 +253,10 @@ def fused_bottleneck_flat(x_flat, mask, w1, b1, w2, b2, w3, b3, wd=None,
     out = torch.empty((n, phw, cout), dtype=x_flat.dtype,
                       device=x_flat.device)
 
-    from pvr_habitat_tpu_torch.ops.cuda import build
+    if lib is None:
+        from pvr_habitat_tpu_torch.ops.cuda import build
 
-    lib = build.load("fused_bottleneck")
+        lib = build.load("fused_bottleneck")
     with torch.cuda.device(x_flat.device):
         err = lib.fused_bottleneck_flat_launch(
             _DTYPE_CODE[x_flat.dtype], x_flat.data_ptr(), mask.data_ptr(),

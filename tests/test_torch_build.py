@@ -1,8 +1,13 @@
 """The kernel build's bookkeeping, which runs without nvcc: where a build
 lives, and the ptxas report that ``chip_smoke.py`` and
-``tools/attention_tilings.py`` print."""
+``tools/attention_tilings.py`` and ``tools/bottleneck_variants.py``
+print."""
+
+import pytest
+import torch
 
 from pvr_habitat_tpu_torch.ops.cuda import build
+from pvr_habitat_tpu_torch.tools import bottleneck_variants
 
 # ``nvcc -Xptxas -v`` output for two instances of the attention source.
 PTXAS = """\
@@ -34,6 +39,18 @@ def test_short_name_keeps_integer_and_bool_arguments():
     assert (build._short_name("_Z20fused_bottleneck_kerILi4ELb1EEvv")
             == "fused_bottleneck_ker<4,1>")
     assert build._short_name("plain_c_name") == "plain_c_name"
+    # the bf16 bottleneck kernel's v1 and v2 instances
+    for flat in (0, 1):
+        mangled = (f"_ZN12_GLOBAL__N_121bottleneck_mma_kernelILb{flat}EEEv"
+                   "NS_4ArgsI13__nv_bfloat16EE")
+        assert build._short_name(mangled) == f"bottleneck_mma_kernel<{flat}>"
+
+
+def test_variant_timing_tool_refuses_without_a_card(capsys):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    assert bottleneck_variants.main([]) == 1
+    assert "CUDA is not available" in capsys.readouterr().err
 
 
 def test_library_path_follows_source(tmp_path):

@@ -36,7 +36,17 @@ def _block(rng, cin, planes, stride, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("stride,cin,planes,h", [
-    (1, 64, 32, 16), (1, 128, 32, 16), (2, 128, 64, 16), (1, 64, 16, 7)])
+    (1, 64, 32, 16), (1, 128, 32, 16),
+    # bf16: tile 8 at stride 2 is a 17 x 17 halo, 289 rows, so stage 1
+    # walks two m-blocks of 256 and stages W1 once for each
+    (2, 128, 64, 16),
+    # bf16: P = 16, fewer channels than any block tile is wide
+    (1, 64, 16, 7),
+    # a projection whose Cin = 48 is no multiple of the 32-row weight chunk
+    (1, 48, 16, 8),
+    # layer4.1's widths, 2048 -> 512 -> 2048 on 7 x 7: in bf16, 32 x 256
+    # block tiles in stages 2 and 3
+    (1, 2048, 512, 7)])
 def test_kernels_match_plain_versions(dtype, stride, cin, planes, h):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU and nvcc")
@@ -59,6 +69,42 @@ def test_kernels_match_plain_versions(dtype, stride, cin, planes, h):
         torch.cuda.synchronize()
         torch.testing.assert_close(got, want, atol=TOL[dtype],
                                    rtol=TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stride", [1, 2])
+def test_bf16_kernels_match_plain_versions_at_a_ragged_cout(stride):
+    """Cout = 40: the last 8-wide n-tile of stage 3 is half of a 16-wide
+    ldmatrix pair.  ``_block`` always gives Cout = 4 P, so the weights
+    are drawn here."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    rng = np.random.RandomState(9)
+    cin, p, cout, h = 64, 16, 40, 8
+
+    def draw(*shape, dtype=torch.bfloat16):
+        fan_in = np.prod(shape[:-1])
+        w = rng.randn(*shape).astype(np.float32) / np.sqrt(fan_in)
+        return torch.from_numpy(w).to("cuda", dtype).contiguous()
+
+    w = (draw(cin, p), draw(p, dtype=torch.float32), draw(9, p, p),
+         draw(p, dtype=torch.float32), draw(p, cout),
+         draw(cout, dtype=torch.float32), draw(cin, cout),
+         draw(cout, dtype=torch.float32))
+    x = torch.from_numpy(rng.randn(2, h, h, cin).astype(np.float32))
+    x = x.to("cuda", torch.bfloat16)
+    got = fb.fused_bottleneck(x, *w, stride=stride).float()
+    want = fb.fused_bottleneck_ref(x, *w, stride=stride).float()
+    torch.cuda.synchronize()
+    tol = TOL[torch.bfloat16]
+    torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+    if stride == 1:
+        mask = torch.from_numpy(fb.flat_mask(h, h)).cuda()
+        xf = fb.to_padded_flat(x)
+        got = fb.fused_bottleneck_flat(xf, mask, *w, h=h, w=h).float()
+        want = fb.fused_bottleneck_flat_ref(xf, mask, *w, h=h, w=h).float()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, atol=tol, rtol=tol)
 
 
 # Attention.  f32: the JAX test's 1e-5; only the summation order differs.

@@ -76,6 +76,32 @@ def test_tar_weights_interoperate(tmp_path, writer):
                                rtol=TOL)
 
 
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_state_dicts_interoperate(writer):
+    frames = _frames(2, seed=3)
+    jnet = JaxNet("resnet50", pretrained=False)
+    tnet = EmbeddingNet("resnet50", pretrained=False, device="cpu")
+    # perturb the writer's weights so that loading them is observable
+    if writer == "jax":
+        jnet.params = {k: v * 1.01 for k, v in jnet.params.items()}
+        tnet.load_state_dict(jnet.state_dict())
+    else:
+        tnet.params = {k: v * 1.01 for k, v in tnet.params.items()}
+        jnet.load_state_dict(tnet.state_dict())
+    np.testing.assert_allclose(tnet(frames), jnet(frames), atol=TOL,
+                               rtol=TOL)
+
+
+@pytest.mark.parametrize("name", ["resnet50", "mae_base"])
+def test_state_dict_has_the_jax_layout(name):
+    want = JaxNet(name, pretrained=False).state_dict()
+    got = EmbeddingNet(name, pretrained=False, device="cpu").state_dict()
+    assert set(got) == set(want)
+    for key, value in got.items():
+        assert isinstance(value, np.ndarray) and value.dtype == np.float32
+        assert value.shape == want[key].shape, key
+
+
 def test_true_state_passthrough():
     net = EmbeddingNet("true_state", device="cpu")
     obs = np.arange(12, dtype=np.float32).reshape(1, 12)

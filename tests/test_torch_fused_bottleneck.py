@@ -97,9 +97,18 @@ def test_main_path_shapes_get_a_tile_that_fits():
               (28, 2, 256, 128, 512, True), (28, 1, 512, 128, 512, False),
               (14, 2, 512, 256, 1024, True), (14, 1, 1024, 256, 1024, False),
               (7, 2, 1024, 512, 2048, True), (7, 1, 2048, 512, 2048, False)]
+    bf16_tiles = []
     for ho, s, cin, p, cout, ds in shapes:
         for itemsize in (2, 4):
             t = tfb.pick_tile(ho, s, cin, p, cout, ds, itemsize)
             hs = (t - 1) * s + 3
             assert 1 <= t <= ho
-            assert (hs * hs + t * t) * (p + 8) * itemsize <= tfb.MAX_SMEM
+            # y1 and y2 at pitch P + 8, and in bf16 the weight ring
+            ring = tfb.RING_BYTES if itemsize == 2 else 0
+            smem = (hs * hs + t * t) * (p + 8) * itemsize + ring
+            assert smem == tfb.smem_bytes(t, s, p, itemsize) <= tfb.MAX_SMEM
+            if itemsize == 2:
+                bf16_tiles.append(t)
+    assert tfb.RING_BYTES == 2 * 32 * (256 + 8) * 2
+    # the ring leaves the bf16 tiles where they were before it
+    assert bf16_tiles == [8, 14, 7, 7, 7, 7, 4, 7]
