@@ -3,12 +3,15 @@
 
     python3 chip_smoke.py
 
-Drives the port's two paths through ``EmbeddingNet`` with random seeded
-weights: the ResNet-50 frame-embedding service (uint8 64x64 frames ->
+Drives the port's paths with random seeded weights: the ResNet-50
+frame-embedding service (uint8 64x64 frames ->
 matmul preprocess -> BN-folded ResNet-50 -> 2048-d embedding) and the
 MAE ViT embedding service (uint8 64x64 frames -> bicubic preprocess ->
-patch embed -> 12 pre-LN transformer blocks -> 768-d CLS embedding), and
-holds every kernel of those paths against its plain PyTorch version.
+patch embed -> 12 pre-LN transformer blocks -> 768-d CLS embedding), both
+through ``EmbeddingNet``, and the BC pipeline on ResNet-50 embeddings
+(datagen -> bulk embedding -> ``main_bc_2`` -> ``main_test``, and
+``main_bc_1``), and holds every kernel of those paths against its plain
+PyTorch version.
 Phases, each fatal on failure:
 
 1. device: the card's name and power limit;
@@ -36,7 +39,21 @@ Phases, each fatal on failure:
 6. times: each kernel's median ms per shape beside its bound, its plain
    version and one library call of the same function (cuDNN bf16
    channels_last ``F.conv2d`` for a block, ``scaled_dot_product_attention``
-   for attention); end-to-end frames/s for every route of both paths.
+   for attention); end-to-end frames/s for every route of both paths;
+7. slice, BC trainer and online eval on ResNet-50 embeddings (f32, the
+   CLIs' default, so the f32 engine of ``fused_bottleneck``): the kernel
+   against its plain version at the slice's batch sizes (1, 4, 32); expert
+   data of one FakeNav scene (``save_opt_trajectories``), the bulk
+   embedder (``save_embedded_obs``), 5 train steps at full width (B 32,
+   T 100, obs 2048) on the card against the CPU (rtol 1e-3), ``main_bc_2``
+   with eval_batch 1 (wrapper envs) and 4 (the fused runner),
+   ``main_test`` on its checkpoint and ``main_bc_1`` (embed at load).
+   Each run is gated on 16 ``fused_bottleneck`` launches per encoder
+   forward and none of ``fused_bottleneck_flat``, and on finite losses,
+   the stats pickle and the checkpoint; then the training frames/s, the
+   eval ms per env step at K = 1 and 4 with the encoder's share, and at
+   batch 1 and 4 in f32 the kernel's ms a forward beside its bound, its
+   plain version and cuDNN f32, and a whole forward on v1 against off.
 
 The last three lines are the card's name and power limit, one JSON
 object with the kernels' numbers, and the verdict
@@ -48,12 +65,14 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 
 PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 PEAK_BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
+PEAK_F32_FLOP_PER_S = 67e12    # H100 SXM float32 outside the tensor cores
 SEED = 0
 
 # ResNet-50 at 224 input: (first block of the shape class, H in, stride,
@@ -82,6 +101,14 @@ ATTENTION = [("mae_base", 12, 197, 64, 12),
 ATTENTION_EDGES = [(2, 4, 128, 64), (2, 4, 256, 64), (2, 4, 272, 80),
                    (2, 4, 600, 64)]
 MAE_LAUNCHES = {"fused_attention": 12}
+# Phase 7, the BC slice: expert data of one PointNav scene, enough of it
+# that sample_with_minimum_distance finds 32 starts 100 apart (n > 3101).
+BC_ENV = "FakePointNav-apartment_0"
+BC_TRAJECTORIES = 72           # about 3,700 samples
+BC_MIN_SAMPLES = 3300
+BC_STEPS = 5                   # train steps held card against CPU
+BC_EPISODE_STEPS = 60          # eval episode limit
+EVAL_BATCHES = (1, 4)          # lockstep eval envs the f32 times are taken at
 # The bf16 engine of fused_bottleneck.cu, FLAT = false (v1) and true (v2).
 BF16_INSTANCES = {"bottleneck_mma_kernel<0>", "bottleneck_mma_kernel<1>"}
 # kernel -> (TPU kernel it replaces, CUDA source)
@@ -305,31 +332,37 @@ def add_time(totals, kernel, count, **values):
         totals[kernel][key] += count * val
 
 
+def library_block(torch, F, params, prefix, s, ds, dtype, x):
+    """One bottleneck block as cuDNN ``F.conv2d`` calls on a channels_last
+    view of the NHWC ``x``, with the folded weights cast once: the
+    library call of the kernel's function (TF32 off in f32)."""
+    def conv(name, bias):
+        return (params[f"{prefix}.{name}.weight"].to(
+            dtype, memory_format=torch.channels_last),
+            params[f"{prefix}.{bias}.bias"].to(dtype))
+
+    c1, c2, c3 = conv("conv1", "bn1"), conv("conv2", "bn2"), conv("conv3",
+                                                                  "bn3")
+    cd = conv("downsample.0", "downsample.1") if ds else None
+    xc = x.permute(0, 3, 1, 2)
+
+    def library():
+        y = F.relu(F.conv2d(xc, *c1))
+        y = F.relu(F.conv2d(y, *c2, s, 1))
+        y = F.conv2d(y, *c3)
+        return F.relu(y + (F.conv2d(xc, *cd, s) if ds else xc))
+
+    return library
+
+
 def time_bottleneck_kernels(torch, F, fb, params, activations, device,
                             totals):
     n = 256
     for prefix, h, s, cin, p, cout, ds, n_v1, n_v2 in BLOCKS:
         w = fb.block_weights(params, prefix, torch.bfloat16)
         x = activations(n, h, cin, torch.bfloat16)
-
-        def lib_w(name):
-            return params[f"{prefix}.{name}.weight"].to(
-                torch.bfloat16, memory_format=torch.channels_last)
-
-        def lib_b(name):
-            return params[f"{prefix}.{name}.bias"].to(torch.bfloat16)
-
-        xc = x.permute(0, 3, 1, 2)     # channels_last view
-
-        def library():
-            y = F.relu(F.conv2d(xc, lib_w("conv1"), lib_b("bn1")))
-            y = F.relu(F.conv2d(y, lib_w("conv2"), lib_b("bn2"), s, 1))
-            y = F.conv2d(y, lib_w("conv3"), lib_b("bn3"))
-            sc = (F.conv2d(xc, lib_w("downsample.0"), lib_b("downsample.1"),
-                           s) if ds else xc)
-            return F.relu(y + sc)
-
-        library_ms = time_ms(torch, library)
+        library_ms = time_ms(torch, library_block(
+            torch, F, params, prefix, s, ds, torch.bfloat16, x))
         mask = torch.from_numpy(fb.flat_mask(h, h)).to(device)
         xf = fb.to_padded_flat(x)
         cases = [("fused_bottleneck", n_v1, False,
@@ -387,19 +420,62 @@ def time_attention_kernel(torch, F, fa, gen, totals):
               flush=True)
 
 
-def profile_forward(torch, net, frames, label, top=8):
-    """One forward under ``torch.profiler``: wall time, the device's busy
-    time summed over its kernels and copies, the idle share, and the
-    kernels that take the most device time."""
+def time_f32_eval_batches(torch, F, fb, params, activations, nets, device,
+                          smi):
+    """The f32 engine of fused_bottleneck at the eval batches (1 and 4
+    lockstep envs, the CLIs' default dtype): per forward (16 launches on
+    v1) its ms beside its bound (f32 outside the tensor cores), its plain
+    version and cuDNN f32; then one whole f32 forward on each route of
+    ``nets`` (v1 and off) at the same batch."""
+    frames = torch.from_numpy(np.random.RandomState(SEED).randint(
+        0, 256, size=(max(EVAL_BATCHES), 64, 64, 3), dtype=np.uint8)).to(
+            device)
+    for n in EVAL_BATCHES:
+        totals = {"fused_bottleneck": dict.fromkeys(
+            ("ms", "plain_ms", "library_ms", "bytes_ms", "flop_ms"), 0.0)}
+        for prefix, h, s, cin, p, cout, ds, count, _ in BLOCKS:
+            w = fb.block_weights(params, prefix, torch.float32)
+            x = activations(n, h, cin, torch.float32)
+            ms = time_ms(torch, lambda: fb.fused_bottleneck(x, *w, stride=s))
+            plain_ms = time_ms(
+                torch, lambda: fb.fused_bottleneck_ref(x, *w, stride=s))
+            library_ms = time_ms(torch, library_block(
+                torch, F, params, prefix, s, ds, torch.float32, x))
+            nbytes, flop = block_cost(n, h, s, cin, p, cout, ds, 4, False)
+            add_time(totals, "fused_bottleneck", count, ms=ms,
+                     plain_ms=plain_ms, library_ms=library_ms,
+                     bytes_ms=nbytes / PEAK_BYTES_PER_S * 1e3,
+                     flop_ms=flop / PEAK_F32_FLOP_PER_S * 1e3)
+            print(f"time fused_bottleneck {prefix} f32 n={n} (x{count}/"
+                  f"forward): ms {ms:.4f} plain {plain_ms:.4f} library "
+                  f"(cuDNN f32) {library_ms:.4f}", flush=True)
+        t = totals["fused_bottleneck"]
+        by = "bytes" if t["bytes_ms"] >= t["flop_ms"] else "operations"
+        forward = {route: time_ms(torch, lambda: net._forward(frames[:n]))
+                   for route, net in nets.items()}
+        print(f"f32 batch {n}, per forward: fused_bottleneck ms "
+              f"{t['ms']:.4f} (16 launches), bound "
+              f"{max(t['bytes_ms'], t['flop_ms']):.4f} ({by}), plain "
+              f"{t['plain_ms']:.4f}, library (cuDNN f32) "
+              f"{t['library_ms']:.4f}; whole forward "
+              + ", ".join(f"{route} {ms:.4f} ms"
+                          for route, ms in forward.items())
+              + f" [{smi}]", flush=True)
+
+
+def profile_call(torch, fn, label, top=8):
+    """One call of ``fn`` (after one unprofiled) under ``torch.profiler``:
+    wall time, the device's busy time summed over its kernels and copies,
+    the idle share, and the kernels that take the most device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    net._forward(frames)
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
-        net._forward(frames)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - start) * 1e3
     device = sorted((e for e in prof.key_averages()
@@ -414,6 +490,349 @@ def profile_forward(torch, net, frames, label, top=8):
     for e in device[:top]:
         print(f"  {e.self_device_time_total / 1e3:8.3f} ms x{e.count:<4} "
               f"{e.key[:100]}")
+
+
+class ForwardCounter:
+    """Counts encoder forwards: every ``EmbeddingNet.apply`` call is one
+    (the wrapper env, the fused tick and the bulk path all go through it)."""
+
+    def __init__(self, cls):
+        self.count = 0
+        original = cls.apply
+
+        def apply(net, params, frames):
+            self.count += 1
+            return original(net, params, frames)
+
+        cls.apply = apply
+
+
+def train_state_to(bc_step, state, device):
+    """A copy of a ``TrainState`` on ``device`` (params, BN stats and the
+    optimizer state; a fresh generator, which draws no loss term)."""
+    import torch
+
+    def move(tree):
+        return {k: v.to(device) for k, v in tree.items()} \
+            if isinstance(tree, dict) else tree
+
+    opt = state.opt_state
+    return bc_step.TrainState(
+        move(state.params), move(state.batch_stats),
+        opt._replace(square_avg=move(opt.square_avg),
+                     momentum_buf=move(opt.momentum_buf)),
+        torch.Generator(device=device))
+
+
+class StepCounter:
+    """Wraps an eval runner and counts its steps: a ``PolicyRunner`` is
+    called once an env step, a ``FusedPolicyRunner`` ticked once a step of
+    its K envs."""
+
+    def __init__(self, runner):
+        self.runner, self.count = runner, 0
+
+    def initial_state(self, batch_size=1):
+        return self.runner.initial_state(batch_size)
+
+    def __call__(self, *args):
+        self.count += 1
+        return self.runner(*args)
+
+    def tick(self, *args, **kwargs):
+        self.count += 1
+        return self.runner.tick(*args, **kwargs)
+
+
+def quiet(fn, *args, **kwargs):
+    """Run a trainer or tool with its progress prints kept off the output
+    (its own exceptions still propagate)."""
+    import contextlib
+    import io
+    import warnings
+
+    with contextlib.redirect_stdout(io.StringIO()), \
+            warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return fn(*args, **kwargs)
+
+
+def check_slice_kernel_shapes(torch, fb, params, activations, max_err):
+    """The f32 engine of fused_bottleneck at the batch sizes the BC slice
+    gives it (1 and 4 eval envs, the bulk embedder's 32), every ResNet-50
+    block shape, against the plain version at 1e-4."""
+    for prefix, h, s, cin, p, cout, ds, _, _ in BLOCKS:
+        w = fb.block_weights(params, prefix, torch.float32)
+        for n in (1, 4, 32):
+            x = activations(n, h, cin, torch.float32)
+            got = fb.fused_bottleneck(x, *w, stride=s)
+            torch.cuda.synchronize()
+            want = fb.fused_bottleneck_ref(x, *w, stride=s)
+            torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+            err = (got - want).abs().max().item()
+            max_err["fused_bottleneck"] = max(max_err["fused_bottleneck"],
+                                              err)
+        print(f"fused_bottleneck {prefix} float32 n=1,4,32: max_abs_err "
+              f"{err:.3g} (atol=rtol=1e-4)", flush=True)
+
+
+def bc_slice(torch, fb, fa, device, smi, workdir):
+    """Phase 7: datagen -> bulk embedding (resnet50 f32) -> train steps on
+    the card against the CPU -> main_bc_2 with eval_batch 1 and 4 ->
+    main_test -> main_bc_1, with the launch counters against the encoder
+    forwards in each run, then the slice's times.  Returns the launches."""
+    import os
+    import random
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pvr_habitat_tpu_torch import main_bc_1, main_bc_2, main_test
+    from pvr_habitat_tpu_torch.data import formats, sampler
+    from pvr_habitat_tpu_torch.envs.environment import make_environment
+    from pvr_habitat_tpu_torch.models.embedding_net import EmbeddingNet
+    from pvr_habitat_tpu_torch.tools import save_embedded_obs
+    from pvr_habitat_tpu_torch.tools import save_opt_trajectories
+    from pvr_habitat_tpu_torch.train import bc_step, evaluate
+    from pvr_habitat_tpu_torch.utils import checkpoint as ckpt
+    from pvr_habitat_tpu_torch.utils.flags import default_flags
+
+    forwards = ForwardCounter(EmbeddingNet)
+    launches = {k: 0 for k in KERNELS}
+
+    def counted(label, fn, *args):
+        """Run ``fn`` with every count at 0 before it; gate its launches
+        on 16 per encoder forward and none of the flat kernel."""
+        reset_launches(fb, fa)
+        forwards.count = 0
+        start = time.perf_counter()
+        out = quiet(fn, *args)
+        seconds = time.perf_counter() - start
+        counts = count_launches(fb, fa)
+        want = {"fused_bottleneck": 16 * forwards.count,
+                "fused_bottleneck_flat": 0, "fused_attention": 0}
+        if counts != want or not forwards.count:
+            raise AssertionError(f"{label}: launches {counts}, "
+                                 f"{forwards.count} encoder forwards")
+        for k in KERNELS:
+            launches[k] += counts[k]
+        print(f"{label}: {forwards.count} encoder forwards, launches "
+              f"{counts}, {seconds:.1f} s", flush=True)
+        return out
+
+    # 1. data: expert trajectories, then the bulk embedder on the card
+    flags = save_opt_trajectories.build_tool_parser().parse_args(
+        ["--env", BC_ENV, "--save_path", workdir,
+         "--n_trajectories", str(BC_TRAJECTORIES)])
+    start = time.perf_counter()
+    quiet(save_opt_trajectories.gen_data_habitat, flags)
+    print(f"datagen: {BC_TRAJECTORIES} trajectories in "
+          f"{time.perf_counter() - start:.1f} s", flush=True)
+    flags = save_embedded_obs.build_tool_parser().parse_args(
+        ["--env", BC_ENV, "--data_path", workdir, "--embedding_name",
+         "resnet50", "--source", "pickle", "--disable_pretrained_embedding"])
+    start = time.perf_counter()
+    path = counted("bulk embedder (resnet50 f32, batch 32)",
+                   save_embedded_obs.run, flags)
+    seconds = time.perf_counter() - start
+    data = formats.load_pickle(path)
+    n = len(data["action"])
+    if n < BC_MIN_SAMPLES or data["obs"].shape != (n, 2048) \
+            or not np.isfinite(data["obs"]).all():
+        raise AssertionError(f"embedded data: {data['obs'].shape}")
+    print(f"bulk embedder: {n} samples, {n / seconds:.1f} frames/s "
+          f"(tool wall time, encoder build included) [{smi}]", flush=True)
+
+    # 2. K train steps at full width from one init and one list of starts.
+    # Free-running trajectories of two devices part after step 1 (f32
+    # rounding, amplified; shown below with a 1e-7 perturbation of the
+    # init on the card), so each step is held card against CPU from the
+    # same state: the card's, copied to the CPU before the step.
+    fl = default_flags()
+    b, t = fl.batch_size, fl.unroll_length
+    random.seed(SEED)
+    starts = [sampler.sample_with_minimum_distance(n, b, t)
+              for _ in range(BC_STEPS)]
+    arrays = dict(obs=data["obs"].astype(np.float32),
+                  action=data["action"].astype(np.int64),
+                  done=data["done"].astype(bool))
+    cpu = torch.device("cpu")
+    tensors, cpu_tensors = (sampler.to_tensors(arrays, dev)
+                            for dev in (device, cpu))
+
+    def fresh(noise=0.0):
+        state, opt = bc_step.create_train_state(
+            np.random.RandomState(SEED), (2048,), 3, fl, max_epochs=100,
+            device=device)
+        if noise:
+            gen = torch.Generator(device=device).manual_seed(SEED)
+            state = state._replace(params={
+                k: v * (1 + noise * torch.randn(v.shape, device=device,
+                                                generator=gen))
+                for k, v in state.params.items()})
+        return state, bc_step.make_train_step(opt)
+
+    def run_steps(state, step, snapshots=None):
+        """The card's metrics per step; with a list ``snapshots``, a CPU
+        copy of the card's state before each step is appended to it."""
+        card = []
+        for row in starts:
+            if snapshots is not None:
+                snapshots.append(train_state_to(bc_step, state, cpu))
+            state, m = step(state, sampler.gather_unrolls(tensors, row, t))
+            card.append([m["loss"].item(), m["gradient_norm"].item()])
+        return state, np.asarray(card)
+
+    def cpu_steps(step, snapshots, threads):
+        """The same steps on the CPU, each from the card's state before
+        it.  Runs in a worker thread beside the trainer runs of part 3,
+        which keep two host cores."""
+        torch.set_num_threads(threads)
+        start = time.perf_counter()
+        out = []
+        for state, row in zip(snapshots, starts):
+            _, m = step(state, sampler.gather_unrolls(cpu_tensors, row, t))
+            out.append([m["loss"].item(), m["gradient_norm"].item()])
+        return np.asarray(out), time.perf_counter() - start
+
+    state, step = fresh()
+    snapshots = []
+    state, card = run_steps(state, step, snapshots)
+    if not np.isfinite(card).all():
+        raise AssertionError(f"train steps: {card}")
+    _, perturbed = run_steps(*fresh(noise=1e-7))
+    drift = np.abs(perturbed / card - 1)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for row in starts * 2:
+        state, m = step(state, sampler.gather_unrolls(tensors, row, t))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    print(f"training: {b * t * 2 * BC_STEPS / seconds:.1f} frames/s "
+          f"({seconds / (2 * BC_STEPS) * 1e3:.2f} ms a step of B {b} x T "
+          f"{t}, eval excluded) [{smi}]", flush=True)
+    profile_call(torch, lambda: step(
+        state, sampler.gather_unrolls(tensors, starts[0], t)), "train step")
+
+    # 3. the trainer (main_bc_2) with eval_batch 1 and 4, main_test,
+    # main_bc_1 (embed at load); their seconds include the CPU steps'
+    # contention for the host
+    def bc_flags(save, **kw):
+        return default_flags(**{**dict(
+            env=BC_ENV, to_env=BC_ENV, embedding_name="resnet50",
+            data_path=workdir, save_path=os.path.join(workdir, save),
+            max_frames=b * t * 4, eval_frequency=2, n_episodes_test=2,
+            max_episode_steps=BC_EPISODE_STEPS), **kw})
+
+    def trainers():
+        """Runs the CLIs' entry points; returns main_bc_2's checkpoint."""
+        stem = f"{BC_ENV}_emresnet50_s1_{BC_ENV}"
+        for k in (1, 4):
+            save = f"bc_k{k}"
+            stats = counted(f"main_bc_2 eval_batch {k}", main_bc_2.run,
+                            bc_flags(save, eval_batch=k))[BC_ENV]
+            losses = stats["training_loss"][1:]
+            if len(losses) != 2 or not np.isfinite(losses).all() or not all(
+                    os.path.isfile(os.path.join(workdir, save, stem + ext))
+                    for ext in (".pickle", ".tar")):
+                raise AssertionError(f"main_bc_2 eval_batch {k}: {stats}")
+            print(f"main_bc_2 eval_batch {k}: frames {stats['frames']}, "
+                  f"losses {losses}, returns {stats['episode_return']}",
+                  flush=True)
+        checkpoint = os.path.join(workdir, "bc_k1", stem + ".tar")
+        flags = main_test.parser.parse_args(
+            ["--checkpoint", checkpoint, "--env", BC_ENV, "--from_env",
+             BC_ENV, "--embedding_name", "resnet50", "--data_path", workdir,
+             "--disable_pretrained_embedding", "--n_episodes_test", "2",
+             "--max_episode_steps", str(BC_EPISODE_STEPS)])
+        cwd = os.getcwd()
+        os.chdir(workdir)
+        try:
+            stats = counted("main_test", main_test.run, flags)
+        finally:
+            os.chdir(cwd)
+        if len(stats["episode_step"]) != 2:
+            raise AssertionError(f"main_test: {stats}")
+        print(f"main_test: {stats}", flush=True)
+        stats = counted("main_bc_1 (embed at load)", main_bc_1.run, bc_flags(
+            "bc1", max_frames=b * t * 2, debug=True))[BC_ENV]
+        if len(stats["training_loss"]) != 2 or \
+                not np.isfinite(stats["training_loss"][1]):
+            raise AssertionError(f"main_bc_1: {stats}")
+        print(f"main_bc_1: frames {stats['frames']}, losses "
+              f"{stats['training_loss'][1:]}", flush=True)
+        return checkpoint
+
+    threads = torch.get_num_threads()
+    with ThreadPoolExecutor(1) as pool:
+        reference = pool.submit(cpu_steps, step, snapshots,
+                                max(1, threads - 2))
+        checkpoint = trainers()
+        on_cpu, cpu_seconds = reference.result()
+    torch.set_num_threads(threads)
+    np.testing.assert_allclose(card, on_cpu, rtol=1e-3)
+    rel = np.abs(card / on_cpu - 1).max(axis=0)
+    print(f"train steps (B {b}, T {t}, obs 2048) x{BC_STEPS}, each from the "
+          f"same state, card vs CPU: losses {card[:, 0].round(6).tolist()}, "
+          f"gradient norms {card[:, 1].round(4).tolist()}, max rel err loss "
+          f"{rel[0]:.3g}, gradient norm {rel[1]:.3g} (rtol 1e-3); the CPU's "
+          f"steps took {cpu_seconds:.1f} s on {max(1, threads - 2)} threads; "
+          f"free-running on the card from an init perturbed by 1e-7: rel "
+          f"change of the gradient norm per step "
+          f"{[float(f'{x:.3g}') for x in drift[:, 1]]}", flush=True)
+
+    # 4. eval times on the trained policy: ms per env step, and the share
+    # the encoder takes at the same batch
+    payload = ckpt.load_checkpoint(checkpoint)
+    params, _ = ckpt.split_actor_state(payload["actor_model_state_dict"],
+                                       device)
+    policy = evaluate.PolicyRunner(params)
+    start = time.perf_counter()
+    net = EmbeddingNet("resnet50", pretrained=False)
+    print(f"EmbeddingNet('resnet50') built in "
+          f"{time.perf_counter() - start:.1f} s", flush=True)
+    env_flags = default_flags(env=BC_ENV, embedding_name="resnet50",
+                              max_episode_steps=BC_EPISODE_STEPS)
+    keys = ["episode_return"]
+    frames = np.random.RandomState(SEED).randint(
+        0, 256, size=(4, 64, 64, 3), dtype=np.uint8)
+    for k in (1, 4):
+        if k == 1:
+            runner = StepCounter(policy)
+            env = quiet(make_environment, env_flags, net)
+
+            def run_eval():
+                return evaluate.test(runner, env, keys, 1)
+        else:
+            runner = StepCounter(evaluate.FusedPolicyRunner(policy, net))
+            envs = [quiet(make_environment, env_flags, None, actor_id=i)
+                    for i in range(1, k + 1)]
+
+            def run_eval():
+                return evaluate.batched_test_fused(runner, envs, keys, k)
+        run_eval()                      # warm-up
+        runner.count = 0
+        start = time.perf_counter()
+        run_eval()
+        step_ms = (time.perf_counter() - start) / runner.count * 1e3
+        encoder = []
+        for _ in range(20):
+            start = time.perf_counter()
+            net(frames[:k])
+            encoder.append((time.perf_counter() - start) * 1e3)
+        enc_ms = statistics.median(encoder)
+        if k == 1:
+            env_output = env.initial()
+            core = policy.initial_state(1)
+
+            def one_step():
+                out, _ = policy(env_output, core)
+                env.step(out["action"])
+
+            profile_call(torch, one_step, "eval step K=1")
+        print(f"eval K={k}: {step_ms:.3f} ms per env step over "
+              f"{runner.count} steps; encoder (resnet50 f32, batch {k}, "
+              f"upload and download included) {enc_ms:.3f} ms, "
+              f"{enc_ms / step_ms:.1%} of a step [{smi}]", flush=True)
+    return launches
 
 
 def main():
@@ -528,8 +947,24 @@ def main():
         print(f"e2e {name} {route}: {n / ms * 1e3:.1f} frames/s "
               f"({ms:.3f} ms per batch of {n}, frames on device)", flush=True)
         if route in ("off", "v1", "attention"):
-            profile_forward(torch, net, dev_frames, f"{name} {route}")
+            profile_call(torch, lambda: net._forward(dev_frames),
+                         f"{name} {route}")
     print(f"times phase {time.perf_counter() - t0:.1f} s")
+
+    t0 = phase("7 slice: BC trainer and online eval (resnet50)")
+    check_slice_kernel_shapes(torch, fb, params, activations, max_err)
+    print(f"f32 kernel checks {time.perf_counter() - t0:.1f} s", flush=True)
+    with tempfile.TemporaryDirectory() as workdir:
+        counts = bc_slice(torch, fb, fa, device, smi, workdir)
+    for k in KERNELS:
+        launches[k] += counts[k]
+    start = time.perf_counter()
+    v1_32 = EmbeddingNet("resnet50", pretrained=False,
+                         compute_dtype=torch.float32, fused="v1")
+    time_f32_eval_batches(torch, F, fb, params, activations,
+                          {"v1": v1_32, "off": net32}, device, smi)
+    print(f"f32 eval-batch times {time.perf_counter() - start:.1f} s")
+    print(f"slice phase {time.perf_counter() - t0:.1f} s")
 
     line = {"kernels": [{
         "name": k, "route": "cuda", "source": KERNELS[k][1],

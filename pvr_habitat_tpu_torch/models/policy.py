@@ -1,0 +1,161 @@
+"""The BC policy network (counterpart of ``pvr_habitat_tpu/models/policy.py``).
+
+``PolicyNet`` — MLP(obs->1024->1024) -> 2-layer LSTM(1024) -> policy +
+baseline heads, optional input BatchNorm1d, orthogonal init
+(reference: src/models.py:13-89).  The conv policy of the finetune path
+waits for that mode (ROADMAP.md queue 1, item 2).
+
+Parameter keys mirror the torch module paths, as in the JAX package, so
+checkpoints of either package load in the other:
+  without batch_norm: fc.0 / fc.2 are the Linears;
+  with batch_norm:    fc.0 is BatchNorm1d, fc.1 / fc.3 the Linears.
+LSTM params: core.weight_ih_l{0,1} etc.  Heads: policy.*, baseline.*.
+
+Model state is split into ``params`` (trained) and ``batch_stats``
+(BatchNorm running mean/var, returned updated in train mode), so the
+train step stays functional: flat dicts of tensors in, new dicts out.
+"""
+
+import math
+
+import numpy as np
+import torch
+
+from pvr_habitat_tpu_torch.models import common as cm
+from pvr_habitat_tpu_torch.models import convert
+from pvr_habitat_tpu_torch.ops.lstm import lstm_scan, stack_lstm_params
+from pvr_habitat_tpu_torch.utils.platform import resolve_device
+
+HIDDEN = 1024
+LSTM_LAYERS = 2
+BN_MOMENTUM = 0.1
+BN_EPS = 1e-5
+
+
+# -----------------------------------------------------------------------------
+# Init (the JAX package's numpy stream, draw for draw)
+# -----------------------------------------------------------------------------
+
+
+def _init_lstm(out, rng, input_size):
+    k = 1.0 / math.sqrt(HIDDEN)
+    for layer in range(LSTM_LAYERS):
+        in_size = input_size if layer == 0 else HIDDEN
+        out[f"core.weight_ih_l{layer}"] = rng.uniform(
+            -k, k, size=(4 * HIDDEN, in_size)).astype(np.float32)
+        out[f"core.weight_hh_l{layer}"] = rng.uniform(
+            -k, k, size=(4 * HIDDEN, HIDDEN)).astype(np.float32)
+        out[f"core.bias_ih_l{layer}"] = rng.uniform(
+            -k, k, size=(4 * HIDDEN,)).astype(np.float32)
+        out[f"core.bias_hh_l{layer}"] = rng.uniform(
+            -k, k, size=(4 * HIDDEN,)).astype(np.float32)
+
+
+def _init_heads(out, rng, num_actions):
+    out["policy.weight"] = cm.orthogonal(rng, (num_actions, HIDDEN), gain=1.0)
+    out["policy.bias"] = np.zeros(num_actions, np.float32)
+    out["baseline.weight"] = cm.orthogonal(rng, (1, HIDDEN), gain=1.0)
+    out["baseline.bias"] = np.zeros(1, np.float32)
+
+
+def init_policy_params(rng, obs_size, num_actions, batch_norm=False,
+                       device=None):
+    """Returns (params, batch_stats), flat dicts of f32 tensors on
+    ``device`` (``cuda`` unless the caller asks for the CPU)."""
+    device = resolve_device(device)
+    gain = math.sqrt(2.0)  # calculate_gain('relu')
+    params, stats = {}, {}
+    fc0 = 1 if batch_norm else 0
+    if batch_norm:
+        params["fc.0.weight"] = np.ones(obs_size, np.float32)
+        params["fc.0.bias"] = np.zeros(obs_size, np.float32)
+        stats["fc.0.running_mean"] = np.zeros(obs_size, np.float32)
+        stats["fc.0.running_var"] = np.ones(obs_size, np.float32)
+    params[f"fc.{fc0}.weight"] = cm.orthogonal(rng, (HIDDEN, obs_size), gain)
+    params[f"fc.{fc0}.bias"] = np.zeros(HIDDEN, np.float32)
+    params[f"fc.{fc0 + 2}.weight"] = cm.orthogonal(rng, (HIDDEN, HIDDEN), gain)
+    params[f"fc.{fc0 + 2}.bias"] = np.zeros(HIDDEN, np.float32)
+    _init_lstm(params, rng, HIDDEN)
+    _init_heads(params, rng, num_actions)
+    return (convert.params_from_numpy(params, device),
+            convert.params_from_numpy(stats, device))
+
+
+def initial_state(batch_size, device=None):
+    """Zero (h, c), each (L, B, H) (reference: src/models.py:52-54)."""
+    device = resolve_device(device)
+    shape = (LSTM_LAYERS, batch_size, HIDDEN)
+    return (torch.zeros(shape, device=device),
+            torch.zeros(shape, device=device))
+
+
+# -----------------------------------------------------------------------------
+# Forward
+# -----------------------------------------------------------------------------
+
+
+def _batch_norm_1d(x, params, batch_stats, train):
+    """Train mode normalises with the biased batch variance and moves the
+    running variance with the unbiased one, as torch's BatchNorm1d does."""
+    gamma = params["fc.0.weight"]
+    beta = params["fc.0.bias"]
+    if train:
+        mean = x.mean(dim=0)
+        var = x.var(dim=0, unbiased=False)
+        n = x.shape[0]
+        unbiased = var * (n / max(n - 1, 1))
+        new_stats = {
+            "fc.0.running_mean": (1 - BN_MOMENTUM)
+            * batch_stats["fc.0.running_mean"] + BN_MOMENTUM * mean.detach(),
+            "fc.0.running_var": (1 - BN_MOMENTUM)
+            * batch_stats["fc.0.running_var"]
+            + BN_MOMENTUM * unbiased.detach(),
+        }
+    else:
+        mean = batch_stats["fc.0.running_mean"]
+        var = batch_stats["fc.0.running_var"]
+        new_stats = batch_stats
+    x = (x - mean) * torch.rsqrt(var + BN_EPS) * gamma + beta
+    return x, new_stats
+
+
+def apply_policy(params, batch_stats, inputs, core_state, *, batch_norm=False,
+                 train=False, generator=None):
+    """PolicyNet forward.
+
+    inputs: dict(obs=(T, B, O) float, done=(T, B) bool-ish).
+    ``generator`` (a ``torch.Generator`` on the params' device) draws the
+    train-mode actions, sampled from the logits as the reference does;
+    eval mode takes the argmax.
+    Returns (outputs, new_core_state, new_batch_stats).
+    """
+    obs, done = inputs["obs"], inputs["done"]
+    t, b = obs.shape[0], obs.shape[1]
+    x = obs.reshape(t * b, -1).float()
+
+    new_stats = batch_stats
+    fc0 = 0
+    if batch_norm:
+        x, new_stats = _batch_norm_1d(x, params, batch_stats, train)
+        fc0 = 1
+    x = torch.relu(cm.linear(x, params, f"fc.{fc0}"))
+    x = torch.relu(cm.linear(x, params, f"fc.{fc0 + 2}"))
+
+    notdone = 1.0 - done.float()
+    layers = stack_lstm_params(params, "core", LSTM_LAYERS)
+    core_out, new_state = lstm_scan(layers, x.reshape(t, b, HIDDEN),
+                                    core_state[0], core_state[1], notdone)
+    flat = core_out.reshape(t * b, HIDDEN)
+    logits = cm.linear(flat, params, "policy")
+    baseline = cm.linear(flat, params, "baseline")
+    if train:
+        if generator is None:
+            raise ValueError("train-mode action sampling needs a generator")
+        action = torch.multinomial(torch.softmax(logits.detach(), dim=-1), 1,
+                                   generator=generator)
+    else:
+        action = torch.argmax(logits, dim=-1)
+    outputs = dict(policy_logits=logits.reshape(t, b, -1),
+                   baseline=baseline.reshape(t, b),
+                   action=action.reshape(t, b))
+    return outputs, new_state, new_stats

@@ -169,9 +169,9 @@ def _resnet_family(name):
 
 
 _NOT_PORTED = (
-    ("_uber_", "uber fusions: ROADMAP.md queue 1, item 11"),
-    ("clip_", "CLIP: ROADMAP.md queue 1, item 11"),
-    ("maskrcnn_", "Mask R-CNN: ROADMAP.md queue 1, item 11"),
+    ("_uber_", "uber fusions: ROADMAP.md queue 1, item 5"),
+    ("clip_", "CLIP: ROADMAP.md queue 1, item 5"),
+    ("maskrcnn_", "Mask R-CNN: ROADMAP.md queue 1, item 5"),
 )
 
 

@@ -1,0 +1,95 @@
+"""The BC train step (counterpart of ``pvr_habitat_tpu/train/bc_step.py``).
+
+One step does what the reference's per-epoch Python body does
+(main_bc_2.py:186-227): forward (MLP -> LSTM loop -> heads), NLL loss
+against expert actions, grad, pre-clip global grad-norm metric,
+clip(40), torch-RMSprop update with the linear-decay factor.  The state
+is functional (flat dicts of tensors in, new ones out), as in the JAX
+package, and the metrics stay 0-d tensors on the device until a caller
+reads them.
+
+The JAX package's fused-gather and chunked steps exist only to save
+dispatches (one per epoch, one per eval block).  Eager PyTorch has no
+such cost to save: K of its steps on the batches that
+``sampler.gather_unrolls`` indexes on the data's device give the
+losses of either.
+"""
+
+from typing import Any, NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from pvr_habitat_tpu_torch.models import policy as policy_mod
+from pvr_habitat_tpu_torch.train import optim
+from pvr_habitat_tpu_torch.utils.platform import resolve_device
+
+
+class TrainState(NamedTuple):
+    params: Any
+    batch_stats: Any
+    opt_state: optim.RMSpropTorchState
+    generator: torch.Generator    # draws the train-mode sampled actions
+
+
+def create_train_state(rng_np, obs_shape, num_actions, flags, *,
+                       max_epochs=None, seed=0, device=None):
+    """Fresh TrainState + the optimizer, on ``device`` (``cuda`` unless
+    the caller asks for the CPU)."""
+    device = resolve_device(device)
+    params, stats = policy_mod.init_policy_params(
+        rng_np, obs_shape[0], num_actions, batch_norm=flags.batch_norm,
+        device=device)
+    opt = optim.RMSpropTorch(
+        flags.learning_rate, alpha=flags.alpha, eps=flags.epsilon,
+        momentum=flags.momentum, max_epochs=max_epochs)
+    generator = torch.Generator(device=device)
+    generator.manual_seed(seed)
+    return TrainState(params, stats, opt.init(params), generator), opt
+
+
+def nll_loss(logits, actions):
+    """F.nll_loss(F.log_softmax(logits), target): mean cross entropy
+    over the merged (T*B) axis (reference: main_bc_2.py:211-214)."""
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                           actions.reshape(-1).long())
+
+
+def step_body(state, batch, opt, *, batch_norm=False, max_grad_norm=40.0):
+    """One epoch on a gathered batch dict(obs, action, done) of (T, B,
+    ...) tensors.  Returns (new_state, dict(loss, gradient_norm))."""
+    b = batch["action"].shape[1]
+    params = {k: v.detach().requires_grad_() for k, v in
+              state.params.items()}
+    outputs, _, new_stats = policy_mod.apply_policy(
+        params, state.batch_stats,
+        dict(obs=batch["obs"], done=batch["done"]),
+        policy_mod.initial_state(b, batch["obs"].device),
+        batch_norm=batch_norm, train=True, generator=state.generator)
+    loss = nll_loss(outputs["policy_logits"], batch["action"])
+    # The baseline head is not in the loss: its grads are zeros, as
+    # jax.grad gives them.
+    grads = torch.autograd.grad(loss, list(params.values()),
+                                allow_unused=True)
+    grads = {k: torch.zeros_like(p) if g is None else g
+             for (k, p), g in zip(params.items(), grads)}
+    grads, gnorm = optim.clip_by_global_norm_torch(grads, max_grad_norm)
+    updates, new_opt_state = opt.update(grads, state.opt_state)
+    new_params = optim.apply_updates(state.params, updates)
+    new_state = TrainState(new_params, new_stats, new_opt_state,
+                           state.generator)
+    return new_state, dict(loss=loss.detach(), gradient_norm=gnorm)
+
+
+def make_train_step(opt, *, batch_norm=False, max_grad_norm=40.0):
+    """Returns step(state, batch) -> (state, metrics).
+
+    batch: dict(obs=(T, B, ...), action=(T, B), done=(T, B)) tensors.
+    metrics: dict(loss, gradient_norm) — pre-clip norm, as logged by the
+    reference.
+    """
+    def step(state, batch):
+        return step_body(state, batch, opt, batch_norm=batch_norm,
+                         max_grad_norm=max_grad_norm)
+
+    return step

@@ -14,6 +14,16 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "pvr_habitat_tpu_torch"
 
 
+# The BC trainer and online-eval slice: its modules and entry points.
+SLICE_MODULES = [f"pvr_habitat_tpu_torch.{name}" for name in (
+    "main_bc_1", "main_bc_2", "main_test", "train.bc", "train.bc_step",
+    "train.evaluate", "train.optim", "envs.api", "envs.environment",
+    "envs.fake_nav", "envs.make_env", "envs.wrappers", "data.formats",
+    "data.sampler", "models.policy", "ops.lstm", "utils.checkpoint",
+    "utils.flags", "utils.profiling", "utils.stats",
+    "tools.save_embedded_obs", "tools.save_opt_trajectories")]
+
+
 def _modules():
     return sorted(m.name for m in pkgutil.walk_packages(
         pvr_habitat_tpu_torch.__path__, "pvr_habitat_tpu_torch."))
@@ -24,6 +34,7 @@ def test_every_module_imports_without_jax():
     assert "pvr_habitat_tpu_torch.ops.cuda.fused_bottleneck" in modules
     assert "pvr_habitat_tpu_torch.ops.cuda.attention" in modules
     assert "pvr_habitat_tpu_torch.models.vit" in modules
+    assert set(SLICE_MODULES) <= set(modules)
     code = ("import sys, importlib\n"
             "sys.modules['jax'] = None\n"
             "sys.modules['pvr_habitat_tpu'] = None\n"
@@ -40,5 +51,8 @@ def test_no_source_imports_the_jax_package():
     pattern = re.compile(
         r"^\s*(from|import)\s+(jax|pvr_habitat_tpu)(\.|\s|$)", re.M)
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    for name in SLICE_MODULES:
+        assert PORT / (name.split(".", 1)[1].replace(".", "/") + ".py") \
+            in files, name
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert not offenders, offenders
