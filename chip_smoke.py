@@ -17,8 +17,9 @@ Phases, each fatal on failure:
 1. device: the card's name and power limit;
 2. build: nvcc compiles ``ops/cuda/csrc/*.cu`` into ``build/kernels``,
    one process per source, all started together, and prints each kernel
-   instance's registers and spill bytes from ptxas; the bf16 bottleneck
-   kernel's v1 and v2 instances (``BF16_INSTANCES``) must be among them;
+   instance's registers and spill bytes from ptxas; the bottleneck
+   kernel's bf16 and f32 engines' v1 and v2 instances
+   (``BF16_INSTANCES``, ``F32_INSTANCES``) must be among them;
 3. kernels: both fused-bottleneck kernels against their plain versions
    at every ResNet-50 block shape, in f32 (TF32 off, batch 8, 1e-4) and
    in bf16 (batch 256, per-image cosine gate), with the v2 border; the
@@ -52,8 +53,13 @@ Phases, each fatal on failure:
    forward and none of ``fused_bottleneck_flat``, and on finite losses,
    the stats pickle and the checkpoint; then the training frames/s, the
    eval ms per env step at K = 1 and 4 with the encoder's share, and at
-   batch 1 and 4 in f32 the kernel's ms a forward beside its bound, its
-   plain version and cuDNN f32, and a whole forward on v1 against off.
+   batch 1, 4 and 32 in f32 the kernel's ms per block at the launch
+   shape the wrapper chose (tile, cluster, blocks; gated on being
+   ``pick_launch``'s, and at batch 1 on 32 blocks or more for
+   ``SPLIT_BLOCKS``), with the cluster capped at 1 and at one block a
+   tile, and a forward's sum beside its bound, its plain version and
+   cuDNN f32, a whole forward on v1 against off at batch 1 and 4, and
+   ``cudaOccupancyMaxActiveClusters`` for each cluster used.
 
 The last three lines are the card's name and power limit, one JSON
 object with the kernels' numbers, and the verdict
@@ -62,6 +68,7 @@ prints no result.
 """
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -109,8 +116,15 @@ BC_MIN_SAMPLES = 3300
 BC_STEPS = 5                   # train steps held card against CPU
 BC_EPISODE_STEPS = 60          # eval episode limit
 EVAL_BATCHES = (1, 4)          # lockstep eval envs the f32 times are taken at
-# The bf16 engine of fused_bottleneck.cu, FLAT = false (v1) and true (v2).
+F32_BATCHES = (1, 4, 32)       # ... and the bulk embedder's batch
+# Blocks whose f32 launches at the eval batches must spread over more
+# blocks than one a tile (pick_launch's cluster split).
+SPLIT_BLOCKS = ("layer3.1", "layer4.0", "layer4.1")
+# The bf16 and f32 engines of fused_bottleneck.cu, FLAT = false (v1) and
+# true (v2).
 BF16_INSTANCES = {"bottleneck_mma_kernel<0>", "bottleneck_mma_kernel<1>"}
+F32_INSTANCES = {"bottleneck_kernel<ScalarEngine,0>",
+                 "bottleneck_kernel<ScalarEngine,1>"}
 # kernel -> (TPU kernel it replaces, CUDA source)
 KERNELS = {
     "fused_bottleneck": (
@@ -420,47 +434,106 @@ def time_attention_kernel(torch, F, fa, gen, totals):
               flush=True)
 
 
+def f32_launch_shapes(fb, lib, n, ho, s, cin, p, cout, ds, sms):
+    """The f32 launch shapes (tile, cluster) of one block at batch n:
+    ``pick_launch``'s with the card's cluster occupancy, its choice with
+    the cluster capped at 1 (tile only), and the shape the kernel took
+    before the cluster split (``pick_tile``'s tile, one block a tile)."""
+    def fits(c, smem):
+        return fb.max_clusters(lib, 0, False, c, smem)
+
+    return (fb.pick_launch(ho, s, cin, p, cout, ds, 4, n, sms, fits),
+            fb.pick_launch(ho, s, cin, p, cout, ds, 4, n, sms,
+                           lambda c, smem: fits(c, smem) if c == 1 else 0),
+            (fb.pick_tile(ho, s, cin, p, cout, ds, 4), 1))
+
+
 def time_f32_eval_batches(torch, F, fb, params, activations, nets, device,
                           smi):
     """The f32 engine of fused_bottleneck at the eval batches (1 and 4
-    lockstep envs, the CLIs' default dtype): per forward (16 launches on
-    v1) its ms beside its bound (f32 outside the tensor cores), its plain
-    version and cuDNN f32; then one whole f32 forward on each route of
-    ``nets`` (v1 and off) at the same batch."""
+    lockstep envs, the CLIs' default dtype) and the bulk embedder's 32:
+    per block its ms at the launch shape the wrapper chose (tile, cluster,
+    blocks), at the choice with the cluster capped at 1 and at one block
+    a tile (the shape before the cluster split), beside its plain version
+    and cuDNN f32; per forward (16 launches on v1) each of them beside the
+    bound (f32 outside the tensor cores); then one whole f32 forward on
+    each route of ``nets`` (v1 and off) at the eval batches.  Fails if a
+    launch runs at another shape than ``pick_launch`` chose, or a batch-1
+    launch of ``SPLIT_BLOCKS`` with fewer than 32 blocks."""
+    from pvr_habitat_tpu_torch.ops.cuda import build
+
+    lib = build.load("fused_bottleneck")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     frames = torch.from_numpy(np.random.RandomState(SEED).randint(
         0, 256, size=(max(EVAL_BATCHES), 64, 64, 3), dtype=np.uint8)).to(
             device)
-    for n in EVAL_BATCHES:
+    clusters = {}
+    for n in F32_BATCHES:
         totals = {"fused_bottleneck": dict.fromkeys(
-            ("ms", "plain_ms", "library_ms", "bytes_ms", "flop_ms"), 0.0)}
+            ("ms", "tile_only_ms", "one_block_ms", "plain_ms", "library_ms",
+             "bytes_ms", "flop_ms"), 0.0)}
         for prefix, h, s, cin, p, cout, ds, count, _ in BLOCKS:
             w = fb.block_weights(params, prefix, torch.float32)
             x = activations(n, h, cin, torch.float32)
+            chosen, tile_only, one_block = f32_launch_shapes(
+                fb, lib, n, h // s, s, cin, p, cout, ds, sms)
             ms = time_ms(torch, lambda: fb.fused_bottleneck(x, *w, stride=s))
+            tile, cluster, blocks = fb.last_launch["fused_bottleneck"]
+            if (tile, cluster) != chosen or (
+                    prefix in SPLIT_BLOCKS and n == 1 and blocks < 32):
+                raise AssertionError(
+                    f"f32 {prefix} n={n}: launched tile {tile} cluster "
+                    f"{cluster}, {blocks} blocks; pick_launch chose "
+                    f"{chosen}")
+            if cluster > 1:
+                smem = fb.smem_bytes(tile, s, p, 4)
+                clusters[(prefix, tile, cluster, smem)] = fb.max_clusters(
+                    lib, 0, False, cluster, smem)
+
+            def shape_ms(shape):
+                return ms if shape == chosen else time_ms(
+                    torch, lambda: fb._launch(x, *w, s, None, shape))
+
+            def at(shape, shape_ms):
+                return (f"ms {shape_ms:.4f} [tile {shape[0]}, "
+                        f"{math.ceil(h // s / shape[0]) ** 2 * n} blocks]")
+
+            tile_only_ms, one_block_ms = shape_ms(tile_only), shape_ms(
+                one_block)
             plain_ms = time_ms(
                 torch, lambda: fb.fused_bottleneck_ref(x, *w, stride=s))
             library_ms = time_ms(torch, library_block(
                 torch, F, params, prefix, s, ds, torch.float32, x))
             nbytes, flop = block_cost(n, h, s, cin, p, cout, ds, 4, False)
             add_time(totals, "fused_bottleneck", count, ms=ms,
+                     tile_only_ms=tile_only_ms, one_block_ms=one_block_ms,
                      plain_ms=plain_ms, library_ms=library_ms,
                      bytes_ms=nbytes / PEAK_BYTES_PER_S * 1e3,
                      flop_ms=flop / PEAK_F32_FLOP_PER_S * 1e3)
             print(f"time fused_bottleneck {prefix} f32 n={n} (x{count}/"
-                  f"forward): ms {ms:.4f} plain {plain_ms:.4f} library "
-                  f"(cuDNN f32) {library_ms:.4f}", flush=True)
+                  f"forward): ms {ms:.4f} [tile {tile}, cluster {cluster}, "
+                  f"{blocks} blocks]; tile only: {at(tile_only, tile_only_ms)}"
+                  f"; one block a tile: {at(one_block, one_block_ms)}; plain "
+                  f"{plain_ms:.4f} library (cuDNN f32) {library_ms:.4f}",
+                  flush=True)
         t = totals["fused_bottleneck"]
         by = "bytes" if t["bytes_ms"] >= t["flop_ms"] else "operations"
-        forward = {route: time_ms(torch, lambda: net._forward(frames[:n]))
-                   for route, net in nets.items()}
+        forward = ""
+        if n in EVAL_BATCHES:
+            forward = "; whole forward " + ", ".join(
+                f"{route} "
+                f"{time_ms(torch, lambda: net._forward(frames[:n])):.4f} ms"
+                for route, net in nets.items())
         print(f"f32 batch {n}, per forward: fused_bottleneck ms "
-              f"{t['ms']:.4f} (16 launches), bound "
+              f"{t['ms']:.4f} (16 launches; tile only "
+              f"{t['tile_only_ms']:.4f}, one block a tile "
+              f"{t['one_block_ms']:.4f}), bound "
               f"{max(t['bytes_ms'], t['flop_ms']):.4f} ({by}), plain "
               f"{t['plain_ms']:.4f}, library (cuDNN f32) "
-              f"{t['library_ms']:.4f}; whole forward "
-              + ", ".join(f"{route} {ms:.4f} ms"
-                          for route, ms in forward.items())
-              + f" [{smi}]", flush=True)
+              f"{t['library_ms']:.4f}{forward} [{smi}]", flush=True)
+    for (prefix, tile, cluster, smem), count in sorted(clusters.items()):
+        print(f"cudaOccupancyMaxActiveClusters {prefix} tile {tile} "
+              f"({smem} B a block), cluster {cluster}: {count}", flush=True)
 
 
 def profile_call(torch, fn, label, top=8):
@@ -872,8 +945,9 @@ def main():
             instances.add(kernel)
             print(f"  ptxas: {kernel}: {regs} registers, spill stores "
                   f"{stores} B, loads {loads} B")
-    if not BF16_INSTANCES <= instances:
-        raise AssertionError(f"ptxas reports no {BF16_INSTANCES - instances}")
+    if not BF16_INSTANCES | F32_INSTANCES <= instances:
+        raise AssertionError("ptxas reports no "
+                             f"{(BF16_INSTANCES | F32_INSTANCES) - instances}")
     print(f"build phase {time.perf_counter() - t0:.1f} s")
 
     # Real ResNet-50 weights (seeded init, BN folded) for every block.

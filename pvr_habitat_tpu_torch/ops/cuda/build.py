@@ -32,9 +32,10 @@ _INT = ctypes.c_int
 SIGNATURES = {
     "fused_bottleneck": {
         "fused_bottleneck_launch":
-            ([_INT] + [_PTR] * 10 + [_INT] * 8 + [_PTR], _INT),
+            ([_INT] + [_PTR] * 10 + [_INT] * 9 + [_PTR], _INT),
         "fused_bottleneck_flat_launch":
-            ([_INT] + [_PTR] * 11 + [_INT] * 7 + [_PTR], _INT),
+            ([_INT] + [_PTR] * 11 + [_INT] * 8 + [_PTR], _INT),
+        "fused_bottleneck_max_clusters": ([_INT] * 3, _INT),
         "fused_bottleneck_error_string": ([_INT], ctypes.c_char_p),
     },
     "fused_attention": {
@@ -120,23 +121,48 @@ def load(name, source=None):
     return lib
 
 
-def _short_name(mangled):
-    """``_ZN<namespace>20attention_mma_kernelILi4ELi13EEEv...`` ->
-    ``attention_mma_kernel<4,13>``: the kernel's name and the integer and
-    bool arguments of its template, so the build's ptxas report names
-    each template instance legibly."""
-    m = re.match(r"_ZN?", mangled)
-    if not m:
-        return mangled
-    pos, name = m.end(), mangled
+def _names(mangled, pos):
+    """The ``<length><name>`` pieces of a mangled name from ``pos``: (the
+    last name, the position after them)."""
+    name = None
     while (m := re.match(r"\d+", mangled[pos:])):
         size = int(m.group())
         name = mangled[pos + m.end():pos + m.end() + size]
         pos += m.end() + size
-    rest = mangled[pos:]
-    if not rest.startswith("I"):
+    return name, pos
+
+
+def _short_name(mangled):
+    """``_ZN<namespace>20attention_mma_kernelILi4ELi13EEEv...`` ->
+    ``attention_mma_kernel<4,13>``: the kernel's name and the integer,
+    bool and class arguments of its template (a class by its last name:
+    ``NS_12ScalarEngineE`` -> ``ScalarEngine``), so the build's ptxas
+    report names each template instance legibly."""
+    m = re.match(r"_ZN?", mangled)
+    if not m:
+        return mangled
+    name, pos = _names(mangled, m.end())
+    if name is None:
+        return mangled
+    if not mangled.startswith("I", pos):
         return name
-    args = re.findall(r"L[a-z](\d+)E", rest[:rest.find("EE") + 2])
+    pos, args = pos + 1, []
+    while pos < len(mangled) and mangled[pos] != "E":
+        if (m := re.match(r"L[a-z](\d+)E", mangled[pos:])):  # int, bool
+            args.append(m.group(1))
+            pos += m.end()
+        elif mangled[pos] == "N":  # a nested name, maybe after a
+            m = re.match(r"N(S\d*_)?", mangled[pos:])  # substitution
+            arg, pos = _names(mangled, pos + m.end())
+            if arg is None or not mangled.startswith("E", pos):
+                break
+            args.append(arg)
+            pos += 1
+        else:
+            arg, pos = _names(mangled, pos)
+            if arg is None:
+                break
+            args.append(arg)
     return f"{name}<{','.join(args)}>"
 
 

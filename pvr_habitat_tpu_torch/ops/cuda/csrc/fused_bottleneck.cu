@@ -41,8 +41,28 @@
 //         (bf162 stores, float2 biases).
 //   f32 (bottleneck_kernel<ScalarEngine>): scalar FMAs from a register
 //         tile of RM rows x RN channels per thread, weights read from
-//         global memory (the f32 parity path; TF32 would break its
-//         tolerance).
+//         global memory two 4-deep steps ahead of their FMAs (the f32
+//         parity path; TF32 would break its tolerance).  It serves the
+//         eval batches (1 and 4 images), where one block per tile gave
+//         layer3/4 4 to 16 blocks for 132 SMs: a batch-1 forward's 16
+//         launches took 11.70 ms, layer4.0 1.87 on 4 SMs.  So a tile may
+//         be computed by a thread-block cluster of C = 1, 2, 4 or 8
+//         blocks that split its channels: block r computes channels
+//         [r P/C, (r+1) P/C) of y1 and y2 and [r Cout/C, (r+1) Cout/C) of
+//         the output, reading only those columns of each weight matrix,
+//         and after stage 1 and stage 2 copies the other channels of y1
+//         and y2 from its peers' shared memory (distributed shared
+//         memory, 16-byte reads) into its own.  Every output element is
+//         still one thread's FMA chain over the same K in the same
+//         order, so every (tile, C) gives the same bits.  The wrapper's
+//         pick_launch chooses (tile, C) from the batch and the SM count.
+//         What bounds it now: a block's time is its rounds of 256 threads
+//         over 8 x 4 jobs, each round one chain of K FMAs that waits on
+//         the L2 for weights; at one 256-thread block an SM (over 200
+//         registers a thread) a stage of few jobs leaves most of the SM's
+//         instruction slots idle.  The 16 launches now take 4.17 ms at batch 1
+//         (11.70 before), 4.99 at batch 4 (11.92), cuDNN f32 3.62 and
+//         3.76; H100 80GB HBM3 at 700 W, chip_smoke.py (PERF.md).
 // The bf16 engine was first a warp-per-job loop that built each B
 // register from two 2-byte global loads and each A register from a 4-byte
 // load; its ResNet-50 v1 forward took 52.2 ms against this one's 31.2
@@ -67,9 +87,12 @@
 // Plain C interface, loaded with ctypes: each launcher returns the
 // cudaError_t of the launch (0 on success).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -90,6 +113,7 @@ struct Args {
   const float* mask; // ((H+2)*(W+2)) for FLAT, else null
   T* out;
   int h, w, cin, p, cout, stride, tile;
+  int cluster;       // f32: blocks that split a tile's channels (1, 2, 4, 8)
   int ring;          // bytes of the bf16 engine's weight ring
 };
 
@@ -132,16 +156,30 @@ struct ScalarEngine {
                                     const T* __restrict__ b, int K, int ldb,
                                     int n0, int /*n_end*/) {
     b += n0;
+    // A step waits on the L2 for its weights, so B's rows are loaded two
+    // 4-deep steps ahead of the FMAs that use them (past the end, the
+    // last step's rows again); the FMAs and their order are unchanged.
+    float4 b0[4], b1[4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      b0[kk] = __ldg(reinterpret_cast<const float4*>(b + (size_t)kk * ldb));
+      b1[kk] = __ldg(reinterpret_cast<const float4*>(
+          b + (size_t)((K > 4 ? 4 : 0) + kk) * ldb));
+    }
     for (int k = 0; k < K; k += 4) {
+      const int kn = k + 8 < K ? k + 8 : K - 4;
+      float4 b2[4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        b2[kk] = __ldg(
+            reinterpret_cast<const float4*>(b + (size_t)(kn + kk) * ldb));
       float4 av[RM];
 #pragma unroll
       for (int r = 0; r < RM; ++r)
         av[r] = *reinterpret_cast<const float4*>(a[r] + k);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
-        const float4 bq =
-            __ldg(reinterpret_cast<const float4*>(b + (size_t)(k + kk) * ldb));
-        const float bv[RN] = {bq.x, bq.y, bq.z, bq.w};
+        const float bv[RN] = {b0[kk].x, b0[kk].y, b0[kk].z, b0[kk].w};
 #pragma unroll
         for (int r = 0; r < RM; ++r) {
           const float x = kk == 0 ? av[r].x : kk == 1 ? av[r].y
@@ -149,6 +187,11 @@ struct ScalarEngine {
 #pragma unroll
           for (int c = 0; c < RN; ++c) acc.v[r][c] = fmaf(x, bv[c], acc.v[r][c]);
         }
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        b0[kk] = b1[kk];
+        b1[kk] = b2[kk];
       }
     }
   }
@@ -199,6 +242,29 @@ __device__ void write_flat_border(T* out, int n, int H, int W, int Cout) {
   }
 }
 
+// Rows [0, M) of the channels that the other C - 1 blocks of this
+// block's cluster own in `buf` (row pitch `pitch`, `width` channels a
+// block; this block is rank r), copied from their shared memory into the
+// same places of this block's, 16 bytes a read.
+template <typename T>
+__device__ void gather_peers(T* buf, int M, int pitch, int width, int C,
+                             int r) {
+  cg::cluster_group cluster = cg::this_cluster();
+  constexpr int kVec = 16 / sizeof(T);  // elements a 16-byte piece
+  const int vec = width / kVec;         // pieces a row of a slice
+  const int per_peer = M * vec;
+  for (int i = threadIdx.x; i < (C - 1) * per_peer; i += kThreads) {
+    const int q = (r + 1 + i / per_peer) % C;  // start at the next rank
+    const int e = i % per_peer;
+    T* local = buf + (e / vec) * pitch + q * width + (e % vec) * kVec;
+    *reinterpret_cast<float4*>(local) =
+        *reinterpret_cast<const float4*>(cluster.map_shared_rank(local, q));
+  }
+}
+
+// One output tile per cluster of args.cluster blocks (a plain launch when
+// it is 1); block r of the cluster computes its 1/C of y1's, y2's and the
+// output's channels (the file header).
 template <typename E, bool FLAT>
 __global__ void __launch_bounds__(kThreads)
 bottleneck_kernel(const Args<typename E::T> args) {
@@ -206,12 +272,14 @@ bottleneck_kernel(const Args<typename E::T> args) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int H = args.h, W = args.w, S = args.stride, TT = args.tile;
   const int P = args.p, Cin = args.cin, Cout = args.cout;
+  const int C = args.cluster;
   const int pitch = P + kPad;
   const int Ho = H / S, Wo = W / S;
   const int HS = (TT - 1) * S + 3;  // halo side
   const int tiles_w = (Wo + TT - 1) / TT;
-  const int oh0 = (blockIdx.x / tiles_w) * TT;
-  const int ow0 = (blockIdx.x % tiles_w) * TT;
+  const int tile = blockIdx.x / C, rank = blockIdx.x % C;
+  const int oh0 = (tile / tiles_w) * TT;
+  const int ow0 = (tile % tiles_w) * TT;
   const int n = blockIdx.y;
   const bool has_ds = args.wd != nullptr;
 
@@ -219,12 +287,13 @@ bottleneck_kernel(const Args<typename E::T> args) {
   T* y2s = y1s + HS * HS * pitch;            // [TT * TT][pitch]
 
   // ---- stage 1: y1 on the halo; zero where conv2 pads ------------------
-  const int groups_p = (P + E::kCols - 1) / E::kCols;
+  // This block's channel groups of y1 and y2: [rank, rank + 1) * groups_p.
+  const int groups_p = P / C / E::kCols;
   const int M1 = HS * HS;
   for (int job = E::unit(); job < ((M1 + E::kRows - 1) / E::kRows) * groups_p;
        job += E::kUnits) {
     const int m0 = (job / groups_p) * E::kRows;
-    const int n0 = (job % groups_p) * E::kCols;
+    const int n0 = (rank * groups_p + job % groups_p) * E::kCols;
     const T* a[E::kSlots];
     float keep[E::kSlots];
 #pragma unroll
@@ -253,6 +322,12 @@ bottleneck_kernel(const Args<typename E::T> args) {
             from_f32<T>(fmaxf(v + args.b1[n0 + c], 0.f) * keep[s]);
     });
   }
+  // In a cluster: every block's slice of y1 is written (cluster.sync also
+  // orders this block's own stores), then the peers' slices are copied in.
+  if (C > 1) {
+    cg::this_cluster().sync();
+    gather_peers(y1s, M1, pitch, P / C, C, rank);
+  }
   __syncthreads();
 
   // ---- stage 2: y2 = relu(conv3x3_s(y1) + b2) from shared memory --------
@@ -260,7 +335,7 @@ bottleneck_kernel(const Args<typename E::T> args) {
   for (int job = E::unit(); job < ((M2 + E::kRows - 1) / E::kRows) * groups_p;
        job += E::kUnits) {
     const int m0 = (job / groups_p) * E::kRows;
-    const int n0 = (job % groups_p) * E::kCols;
+    const int n0 = (rank * groups_p + job % groups_p) * E::kCols;
     int base[E::kSlots];
 #pragma unroll
     for (int s = 0; s < E::kSlots; ++s) {
@@ -284,14 +359,20 @@ bottleneck_kernel(const Args<typename E::T> args) {
             from_f32<T>(fmaxf(v + args.b2[n0 + c], 0.f));
     });
   }
+  // The same for y2; the peers have read this block's y1 before they
+  // arrive here, so y1 is free from now on.
+  if (C > 1) {
+    cg::this_cluster().sync();
+    gather_peers(y2s, M2, pitch, P / C, C, rank);
+  }
   __syncthreads();
 
   // ---- stage 3: out = relu(y2 . W3 + b3 + shortcut) ---------------------
-  const int groups_o = (Cout + E::kCols - 1) / E::kCols;
+  const int groups_o = Cout / C / E::kCols;
   for (int job = E::unit(); job < ((M2 + E::kRows - 1) / E::kRows) * groups_o;
        job += E::kUnits) {
     const int m0 = (job / groups_o) * E::kRows;
-    const int n0 = (job % groups_o) * E::kCols;
+    const int n0 = (rank * groups_o + job % groups_o) * E::kCols;
     const T* a[E::kSlots];
     const T* xs[E::kSlots];  // the shortcut's pixel rows
     bool valid[E::kSlots];
@@ -330,8 +411,12 @@ bottleneck_kernel(const Args<typename E::T> args) {
     });
   }
 
-  // ---- v2: the output border is zero, written by each image's tile 0 ----
+  // ---- v2: the output border is zero, written by block 0 of each image
+  // (tile 0, rank 0) ----
   if (FLAT && blockIdx.x == 0) write_flat_border(args.out, n, H, W, Cout);
+
+  // No block leaves while a peer may still read its y2.
+  if (C > 1) cg::this_cluster().sync();
 }
 
 // ---------------------------------------------------------------------------
@@ -831,8 +916,9 @@ int ring_bytes(size_t base) {
   return (int)(room < most ? room & ~(size_t)15 : most);
 }
 
-// Launch one block per output tile of each image, with y1 and y2 (and,
-// for bf16, the weight ring) in dynamic shared memory.
+// Launch one block per output tile of each image (a cluster of
+// a.cluster blocks per tile where it is more than 1), with y1 and y2
+// (and, for bf16, the weight ring) in dynamic shared memory.
 template <typename T, typename Kernel>
 int launch(Kernel kernel, const Args<T>& a, int n, cudaStream_t stream) {
   const int S = a.stride, Ho = a.h / S, Wo = a.w / S;
@@ -840,9 +926,26 @@ int launch(Kernel kernel, const Args<T>& a, int n, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(((Ho + a.tile - 1) / a.tile) * ((Wo + a.tile - 1) / a.tile),
-                  n);
-  kernel<<<grid, kThreads, smem, stream>>>(a);
+  const int tiles =
+      ((Ho + a.tile - 1) / a.tile) * ((Wo + a.tile - 1) / a.tile);
+  if (a.cluster == 1) {
+    kernel<<<dim3(tiles, n), kThreads, smem, stream>>>(a);
+    return (int)cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(tiles * a.cluster, n);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -851,7 +954,7 @@ Args<T> make_args(const void* x, const void* w1, const void* b1,
                   const void* w2, const void* b2, const void* w3,
                   const void* b3, const void* wd, const void* bd,
                   const void* mask, void* out, int h, int w, int cin, int p,
-                  int cout, int stride, int tile) {
+                  int cout, int stride, int tile, int cluster) {
   Args<T> a;
   a.x = static_cast<const T*>(x);
   a.w1 = static_cast<const T*>(w1);
@@ -866,6 +969,7 @@ Args<T> make_args(const void* x, const void* w1, const void* b1,
   a.out = static_cast<T*>(out);
   a.h = h; a.w = w; a.cin = cin; a.p = p; a.cout = cout;
   a.stride = stride; a.tile = tile;
+  a.cluster = cluster;
   a.ring = 0;
   return a;
 }
@@ -875,16 +979,24 @@ int dispatch(int dtype, const void* x, const void* w1, const void* b1,
              const void* w2, const void* b2, const void* w3, const void* b3,
              const void* wd, const void* bd, const void* mask, void* out,
              int n, int h, int w, int cin, int p, int cout, int stride,
-             int tile, void* stream) {
+             int tile, int cluster, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
+  if (dtype == 0) {
+    // a block's channel slices are whole RN-wide groups (and 16 bytes)
+    const int rn = ScalarEngine::kCols;
+    if ((cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8) ||
+        p % (rn * cluster) || cout % (rn * cluster))
+      return (int)cudaErrorInvalidValue;
     return launch(bottleneck_kernel<ScalarEngine, FLAT>,
                   make_args<float>(x, w1, b1, w2, b2, w3, b3, wd, bd, mask,
-                                   out, h, w, cin, p, cout, stride, tile),
+                                   out, h, w, cin, p, cout, stride, tile,
+                                   cluster),
                   n, s);
+  }
   if (dtype == 1) {
+    if (cluster != 1) return (int)cudaErrorInvalidValue;  // f32 only
     Args<bf16> a = make_args<bf16>(x, w1, b1, w2, b2, w3, b3, wd, bd, mask,
-                                   out, h, w, cin, p, cout, stride, tile);
+                                   out, h, w, cin, p, cout, stride, tile, 1);
     a.ring = ring_bytes(tile_smem(a));
     return launch(bottleneck_mma_kernel<FLAT>, a, n, s);
   }
@@ -896,15 +1008,18 @@ int dispatch(int dtype, const void* x, const void* w1, const void* b1,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  wd and bd are null for an identity
-// shortcut.  Returns the cudaError_t of the launch.
+// shortcut.  cluster: blocks that split each tile's channels, 1, 2, 4 or
+// 8 for float32 (P and Cout multiples of 4 * cluster), 1 for bfloat16.
+// Returns the cudaError_t of the launch.
 int fused_bottleneck_launch(int dtype, const void* x, const void* w1,
                             const void* b1, const void* w2, const void* b2,
                             const void* w3, const void* b3, const void* wd,
                             const void* bd, void* out, int n, int h, int w,
                             int cin, int p, int cout, int stride, int tile,
-                            void* stream) {
+                            int cluster, void* stream) {
   return dispatch<false>(dtype, x, w1, b1, w2, b2, w3, b3, wd, bd, nullptr,
-                         out, n, h, w, cin, p, cout, stride, tile, stream);
+                         out, n, h, w, cin, p, cout, stride, tile, cluster,
+                         stream);
 }
 
 // x and out are (N, (H+2)*(W+2), C) with zero borders; stride 1.
@@ -914,9 +1029,36 @@ int fused_bottleneck_flat_launch(int dtype, const void* x, const void* mask,
                                  const void* w3, const void* b3,
                                  const void* wd, const void* bd, void* out,
                                  int n, int h, int w, int cin, int p,
-                                 int cout, int tile, void* stream) {
+                                 int cout, int tile, int cluster,
+                                 void* stream) {
   return dispatch<true>(dtype, x, w1, b1, w2, b2, w3, b3, wd, bd, mask, out,
-                        n, h, w, cin, p, cout, 1, tile, stream);
+                        n, h, w, cin, p, cout, 1, tile, cluster, stream);
+}
+
+// How many clusters of `cluster` f32 blocks (v1, or v2 with flat = 1) of
+// `smem` bytes of dynamic shared memory the card holds at once
+// (cudaOccupancyMaxActiveClusters); -(cudaError_t) on failure.
+int fused_bottleneck_max_clusters(int flat, int cluster, int smem) {
+  const void* kernel =
+      flat ? (const void*)bottleneck_kernel<ScalarEngine, true>
+           : (const void*)bottleneck_kernel<ScalarEngine, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return -(int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int count = 0;
+  err = cudaOccupancyMaxActiveClusters(&count, kernel, &cfg);
+  return err != cudaSuccess ? -(int)err : count;
 }
 
 const char* fused_bottleneck_error_string(int err) {

@@ -10,9 +10,18 @@ says what bounds each block on the card and how the design answers it.
 A wrapper runs the plain version only for a tensor on the CPU.  For a
 CUDA tensor it launches the kernel or raises; it never falls back.  Each
 launch adds one to ``launches[<kernel>]``, so a run can show that its
-main path went through the kernels.
+main path went through the kernels, and leaves its launch shape in
+``last_launch[<kernel>]``.
+
+Launch shape: ``pick_launch`` chooses a launch's output tile and, in
+f32, how many blocks (a thread-block cluster) split each tile's
+channels, from the batch and the card's SM count.  The f32 engine serves
+the eval batches of 1 and 4 images, where one block a tile left most of
+the card idle (a batch-1 forward's 16 launches: 11.70 ms before the
+split, 4.17 after; H100 80GB HBM3 at 700 W, PERF.md).
 """
 
+import functools
 import math
 
 import numpy as np
@@ -20,6 +29,8 @@ import torch
 import torch.nn.functional as F
 
 launches = {"fused_bottleneck": 0, "fused_bottleneck_flat": 0}
+# (tile, cluster, blocks) of each kernel's last launch
+last_launch = {"fused_bottleneck": None, "fused_bottleneck_flat": None}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # Shared memory one block may use on Hopper (sm_90: 227 KB of the 228 KB).
@@ -33,11 +44,17 @@ _PAD = 8  # shared-memory row pitch is P + 8 (kPad in the .cu)
 RING_BYTES = 2 * 32 * (256 + _PAD) * 2
 # Rows of one job: a bf16 warp's 2 x 16 MMA rows, an f32 thread's 8.
 _JOB_ROWS = {2: 32, 4: 8}
+_F32_JOB_COLS = 4  # channels of an f32 thread's job (RN in the .cu)
+_THREADS = 256     # threads a block (kThreads in the .cu)
+# Blocks of an f32 cluster that split a tile's channels; 8 is the most a
+# cluster may have without the non-portable attribute.
+_CLUSTERS = (1, 2, 4, 8)
 
 
 def reset_launches():
     for key in launches:
         launches[key] = 0
+        last_launch[key] = None
 
 
 # -----------------------------------------------------------------------------
@@ -137,6 +154,73 @@ def pick_tile(ho, stride, cin, p, cout, has_downsample, itemsize):
     return best[1]
 
 
+def launch_shapes(ho, stride, p, cout, itemsize):
+    """Every (tile, cluster) that a launch at output side ``ho`` may take:
+    the tiles whose shared memory fits (``smem_bytes``; a cluster does not
+    change it, since each block holds the whole y1 halo and y2 tile) and,
+    in f32, each cluster size whose slices of P and Cout are whole
+    4-channel jobs; in bf16 cluster 1 only."""
+    clusters = _CLUSTERS if itemsize == 4 else (1,)
+    return [(t, c) for t in _TILES
+            if t <= ho and smem_bytes(t, stride, p, itemsize) <= MAX_SMEM
+            for c in clusters
+            if p % (_F32_JOB_COLS * c) == 0
+            and cout % (_F32_JOB_COLS * c) == 0]
+
+
+def launch_cost(tile, cluster, ho, stride, cin, p, cout, has_downsample, n,
+                sms, max_clusters=None):
+    """``pick_launch``'s model of an f32 launch over ``n`` images at
+    (tile, cluster), as a key to minimise: (waves x the time of one
+    block, padded FMAs over the grid, -blocks).
+
+    A block's time is counted in rounds of its 256 threads over each
+    stage's jobs (8 rows by 4 of the block's 1/C of the channels; rows
+    padded to whole jobs, the halo included), each round a chain of K
+    FMAs: a round is bound by the latency of that chain (one L2 load of
+    weights a 4-deep step), not by how many threads share it.  The waves
+    are the blocks over the SMs, one block an SM at a time (ptxas gives
+    the engine over 200 registers a thread: one 256-thread block an SM),
+    counted in whole clusters: ``max_clusters(c, smem_bytes)``, where
+    given, is how many clusters of c such blocks the card holds at once
+    (one GPC holds a cluster).  Ties go to the fewer padded FMAs, then
+    to more blocks (fewer jobs a block share an SM's instruction slots)."""
+    rows, t, c = _JOB_ROWS[4], tile, cluster
+    hs = (t - 1) * stride + 3
+    stages = [(hs * hs, p, cin), (t * t, p, 9 * p),
+              (t * t, cout, p + (cin if has_downsample else 0))]
+    jobs = [math.ceil(m / rows) * (ch // c // _F32_JOB_COLS)
+            for m, ch, _ in stages]
+    block = sum(math.ceil(j / _THREADS) * k
+                for j, (_, _, k) in zip(jobs, stages))
+    blocks = math.ceil(ho / t) ** 2 * c * n
+    fit = sms // c
+    if max_clusters is not None:
+        fit = min(fit, max_clusters(c, smem_bytes(t, stride, p, 4)))
+    if not fit:
+        return (math.inf,)
+    work = blocks * sum(j * k for j, (_, _, k) in zip(jobs, stages))
+    return math.ceil(blocks / (fit * c)) * block, work, -blocks
+
+
+def pick_launch(ho, stride, cin, p, cout, has_downsample, itemsize, n, sms,
+                max_clusters=None):
+    """(tile, cluster) of one launch over ``n`` images on a card of
+    ``sms`` SMs.
+
+    bf16, and f32 whenever ``pick_tile``'s grid gives every SM a block
+    (tiles * n >= sms, as at the bulk embedder's batch 32): that tile
+    with cluster 1.  Otherwise (f32 at the eval batches) the shape of
+    ``launch_shapes`` of least ``launch_cost``."""
+    tile = pick_tile(ho, stride, cin, p, cout, has_downsample, itemsize)
+    if itemsize != 4 or math.ceil(ho / tile) ** 2 * n >= sms:
+        return tile, 1
+    return min(launch_shapes(ho, stride, p, cout, itemsize),
+               key=lambda tc: launch_cost(*tc, ho, stride, cin, p, cout,
+                                          has_downsample, n, sms,
+                                          max_clusters))
+
+
 def _check(name, t, dtype, device, shape=None):
     if t.dtype != dtype or t.device != device or not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous {dtype} tensor on "
@@ -182,6 +266,37 @@ def _raise_on(lib, err, name):
                            f"{lib.fused_bottleneck_error_string(err).decode()}")
 
 
+@functools.lru_cache(maxsize=None)
+def max_clusters(lib, device, flat, cluster, smem):
+    """How many clusters of ``cluster`` f32 blocks of ``smem`` bytes the
+    card ``device`` (an index) holds at once, by
+    ``cudaOccupancyMaxActiveClusters``."""
+    with torch.cuda.device(device):
+        count = lib.fused_bottleneck_max_clusters(int(flat), cluster, smem)
+    if count < 0:
+        raise RuntimeError("cudaOccupancyMaxActiveClusters failed: "
+                           + lib.fused_bottleneck_error_string(-count)
+                           .decode())
+    return count
+
+
+@functools.lru_cache(maxsize=None)
+def _pick(lib, device, flat, ho, stride, cin, p, cout, has_downsample,
+          itemsize, n):
+    """``pick_launch`` on the card ``device`` (an index), with its SM count
+    and cluster occupancy; kept per shape, so a launch pays no search."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return pick_launch(
+        ho, stride, cin, p, cout, has_downsample, itemsize, n, sms,
+        lambda c, smem: max_clusters(lib, device, flat, c, smem))
+
+
+def _record(name, ho, wo, n, tile, cluster):
+    launches[name] += 1
+    last_launch[name] = (tile, cluster, math.ceil(ho / tile)
+                         * math.ceil(wo / tile) * cluster * n)
+
+
 def fused_bottleneck(x, w1, b1, w2, b2, w3, b3, wd=None, bd=None, stride=1,
                      lib=None):
     """x: (N, H, W, Cin) f32 or bf16.  w1 (Cin, P), w2 (9, P, P), w3
@@ -192,6 +307,12 @@ def fused_bottleneck(x, w1, b1, w2, b2, w3, b3, wd=None, bd=None, stride=1,
     the tree's; every other caller leaves it unset."""
     if x.device.type == "cpu":
         return fused_bottleneck_ref(x, w1, b1, w2, b2, w3, b3, wd, bd, stride)
+    return _launch(x, w1, b1, w2, b2, w3, b3, wd, bd, stride, lib)
+
+
+def _launch(x, w1, b1, w2, b2, w3, b3, wd, bd, stride, lib, shape=None):
+    """``fused_bottleneck`` on the card at the launch shape ``(tile,
+    cluster)``, or at ``pick_launch``'s where it is None."""
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     if x.dim() != 4:
@@ -206,22 +327,24 @@ def fused_bottleneck(x, w1, b1, w2, b2, w3, b3, wd=None, bd=None, stride=1,
     _check("x", x, x.dtype, x.device)
     p, cout = _check_weights(x, cin, w1, b1, w2, b2, w3, b3, wd, bd)
     ho, wo = h // stride, w_ // stride
-    tile = pick_tile(max(ho, wo), stride, cin, p, cout, wd is not None,
-                     x.element_size())
     out = torch.empty((n, ho, wo, cout), dtype=x.dtype, device=x.device)
 
     if lib is None:
         from pvr_habitat_tpu_torch.ops.cuda import build
 
         lib = build.load("fused_bottleneck")
+    tile, cluster = shape or _pick(
+        lib, x.device.index, False, max(ho, wo), stride, cin, p, cout,
+        wd is not None, x.element_size(), n)
     with torch.cuda.device(x.device):
         err = lib.fused_bottleneck_launch(
             _DTYPE_CODE[x.dtype], x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
             w2.data_ptr(), b2.data_ptr(), w3.data_ptr(), b3.data_ptr(),
             _ptr(wd), _ptr(bd), out.data_ptr(), n, h, w_, cin, p, cout,
-            stride, tile, torch.cuda.current_stream(x.device).cuda_stream)
+            stride, tile, cluster,
+            torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(lib, err, "fused_bottleneck")
-    launches["fused_bottleneck"] += 1
+    _record("fused_bottleneck", ho, wo, n, tile, cluster)
     return out
 
 
@@ -235,6 +358,13 @@ def fused_bottleneck_flat(x_flat, mask, w1, b1, w2, b2, w3, b3, wd=None,
     if x_flat.device.type == "cpu":
         return fused_bottleneck_flat_ref(x_flat, mask, w1, b1, w2, b2, w3,
                                          b3, wd, bd, h=h, w=w)
+    return _launch_flat(x_flat, mask, w1, b1, w2, b2, w3, b3, wd, bd, h, w,
+                        lib)
+
+
+def _launch_flat(x_flat, mask, w1, b1, w2, b2, w3, b3, wd, bd, h, w, lib,
+                 shape=None):
+    """``fused_bottleneck_flat`` on the card, as ``_launch``."""
     if x_flat.device.type != "cuda":
         raise ValueError(f"unsupported device {x_flat.device}")
     if x_flat.dim() != 3:
@@ -248,8 +378,6 @@ def fused_bottleneck_flat(x_flat, mask, w1, b1, w2, b2, w3, b3, wd=None,
     _check("x_flat", x_flat, x_flat.dtype, x_flat.device)
     _check("mask", mask, torch.float32, x_flat.device, (phw, 1))
     p, cout = _check_weights(x_flat, cin, w1, b1, w2, b2, w3, b3, wd, bd)
-    tile = pick_tile(max(h, w), 1, cin, p, cout, wd is not None,
-                     x_flat.element_size())
     out = torch.empty((n, phw, cout), dtype=x_flat.dtype,
                       device=x_flat.device)
 
@@ -257,15 +385,18 @@ def fused_bottleneck_flat(x_flat, mask, w1, b1, w2, b2, w3, b3, wd=None,
         from pvr_habitat_tpu_torch.ops.cuda import build
 
         lib = build.load("fused_bottleneck")
+    tile, cluster = shape or _pick(
+        lib, x_flat.device.index, True, max(h, w), 1, cin, p, cout,
+        wd is not None, x_flat.element_size(), n)
     with torch.cuda.device(x_flat.device):
         err = lib.fused_bottleneck_flat_launch(
             _DTYPE_CODE[x_flat.dtype], x_flat.data_ptr(), mask.data_ptr(),
             w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
             w3.data_ptr(), b3.data_ptr(), _ptr(wd), _ptr(bd), out.data_ptr(),
-            n, h, w, cin, p, cout, tile,
+            n, h, w, cin, p, cout, tile, cluster,
             torch.cuda.current_stream(x_flat.device).cuda_stream)
     _raise_on(lib, err, "fused_bottleneck_flat")
-    launches["fused_bottleneck_flat"] += 1
+    _record("fused_bottleneck_flat", h, w, n, tile, cluster)
     return out
 
 

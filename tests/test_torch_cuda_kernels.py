@@ -13,6 +13,7 @@ import torch
 
 from pvr_habitat_tpu_torch.models import resnet
 from pvr_habitat_tpu_torch.ops.cuda import attention as fa
+from pvr_habitat_tpu_torch.ops.cuda import build
 from pvr_habitat_tpu_torch.ops.cuda import fused_bottleneck as fb
 from pvr_habitat_tpu_torch.ops.fold_bn import fold_resnet_bn
 
@@ -105,6 +106,85 @@ def test_bf16_kernels_match_plain_versions_at_a_ragged_cout(stride):
         want = fb.fused_bottleneck_flat_ref(xf, mask, *w, h=h, w=h).float()
         torch.cuda.synchronize()
         torch.testing.assert_close(got, want, atol=tol, rtol=tol)
+
+
+# The f32 engine at the eval batches: ResNet-50's widths where one block a
+# tile left the card idle, (H in, stride, Cin, planes).
+F32_EVAL_BLOCKS = {"layer3.1": (14, 1, 1024, 256),
+                   "layer4.0": (14, 2, 1024, 512),
+                   "layer4.1": (7, 1, 2048, 512)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 4])
+@pytest.mark.parametrize("block", list(F32_EVAL_BLOCKS))
+def test_f32_launch_shapes_give_the_same_bits(block, n):
+    """Every (tile, cluster) that ``pick_launch`` may choose gives the
+    output of one block a tile at ``pick_tile``'s tile bit for bit (each
+    element is one thread's FMA chain in the same order whichever block
+    computes it), and that output is within 1e-4 of the plain version;
+    on v1, and on v2 with its zero border at stride 1."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    torch.backends.cudnn.allow_tf32 = False
+    h, stride, cin, planes = F32_EVAL_BLOCKS[block]
+    rng = np.random.RandomState(17)
+    w = _block(rng, cin, planes, stride, torch.float32)
+    x = torch.from_numpy(rng.randn(n, h, h, cin).astype(np.float32))
+    x = x.cuda().relu_()
+    ho, p, cout = h // stride, planes, 4 * planes
+    parent = (fb.pick_tile(ho, stride, cin, p, cout, w[6] is not None, 4), 1)
+    shapes = fb.launch_shapes(ho, stride, p, cout, 4)
+    assert parent in shapes and {c for _, c in shapes} == {1, 2, 4, 8}
+    chosen = fb.pick_launch(
+        ho, stride, cin, p, cout, w[6] is not None, 4, n,
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    assert chosen in shapes
+    lib = build.load("fused_bottleneck")
+    runs = [(False, lambda shape: fb._launch(x, *w, stride, None, shape),
+             fb.fused_bottleneck_ref(x, *w, stride=stride))]
+    if stride == 1:
+        mask = torch.from_numpy(fb.flat_mask(h, h)).cuda()
+        xf = fb.to_padded_flat(x)
+        runs.append((True, lambda shape: fb._launch_flat(
+            xf, mask, *w, h, h, None, shape),
+            fb.fused_bottleneck_flat_ref(xf, mask, *w, h=h, w=h)))
+    for flat, run, want in runs:
+        kernel = "fused_bottleneck_flat" if flat else "fused_bottleneck"
+        base = run(parent)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(base, want, atol=TOL[torch.float32],
+                                   rtol=TOL[torch.float32])
+        for shape in shapes:
+            # the card holds at least one cluster of every size offered
+            assert fb.max_clusters(lib, 0, flat, shape[1], fb.smem_bytes(
+                shape[0], stride, p, 4)) >= 1
+            got = run(shape)
+            torch.cuda.synchronize()
+            assert fb.last_launch[kernel][:2] == shape
+            torch.testing.assert_close(got, base, atol=0, rtol=0,
+                                       msg=f"{kernel} {shape}")
+            if flat:
+                border = got.reshape(n, h + 2, h + 2, cout)
+                for edge in (border[:, 0], border[:, -1], border[:, :, 0],
+                             border[:, :, -1]):
+                    assert not edge.any()
+
+
+@pytest.mark.cuda
+def test_bf16_refuses_a_cluster():
+    """Only the f32 engine splits a tile over a cluster."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    rng = np.random.RandomState(19)
+    w = _block(rng, 64, 16, 1, torch.bfloat16)
+    x = torch.from_numpy(rng.randn(1, 8, 8, 64).astype(np.float32))
+    x = x.to("cuda", torch.bfloat16)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fb._launch(x, *w, 1, None, (4, 2))
+    mask = torch.from_numpy(fb.flat_mask(8, 8)).cuda()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fb._launch_flat(fb.to_padded_flat(x), mask, *w, 8, 8, None, (4, 2))
 
 
 # Attention.  f32: the JAX test's 1e-5; only the summation order differs.
