@@ -8,10 +8,12 @@ frame-embedding service (uint8 64x64 frames ->
 matmul preprocess -> BN-folded ResNet-50 -> 2048-d embedding) and the
 MAE ViT embedding service (uint8 64x64 frames -> bicubic preprocess ->
 patch embed -> 12 pre-LN transformer blocks -> 768-d CLS embedding), both
-through ``EmbeddingNet``, and the BC pipeline on ResNet-50 embeddings
+through ``EmbeddingNet``, the BC pipeline on ResNet-50 embeddings
 (datagen -> bulk embedding -> ``main_bc_2`` -> ``main_test``, and
-``main_bc_1``), and holds every kernel of those paths against its plain
-PyTorch version.
+``main_bc_1``), the rest of the encoder zoo (the MoCo uber fusion
+``moco_aug_uber_345``, CLIP ViT-B/32 and RN50, Mask R-CNN C4) and the
+finetune trainer (``main_bc_finetune``), and holds every kernel of those
+paths against its plain PyTorch version.
 Phases, each fatal on failure:
 
 1. device: the card's name and power limit;
@@ -59,7 +61,21 @@ Phases, each fatal on failure:
    ``SPLIT_BLOCKS``), with the cluster capped at 1 and at one block a
    tile, and a forward's sum beside its bound, its plain version and
    cuDNN f32, a whole forward on v1 against off at batch 1 and 4, and
-   ``cudaOccupancyMaxActiveClusters`` for each cluster used.
+   ``cudaOccupancyMaxActiveClusters`` for each cluster used;
+8. slice, encoder zoo and finetune: ``tools/zoo_checkpoints.py`` writes
+   seeded checkpoints with trained-like BN statistics in the reference's
+   layouts; each encoder of ``ZOO`` loads them, and its f32 ``off`` path
+   on the card is held against the CPU (8 frames, 1e-3); on its card
+   default route in bf16 (``v1`` for the uber fusion, 45 launches a
+   forward; ``off`` and no launch for the rest) it answers phase 4's
+   requests, held against the f32 ``off`` path; the uber fusion runs in
+   f32 on ``v1`` at batch 1 and 4 against ``off`` (1e-4); frames/s at
+   batch 256 bf16 and a profile of the uber ``v1`` forward; then the conv
+   policy on phase 7's raw data: 5 train steps at full width (B 32, T
+   100, uint8 64x64x3) on the card against the CPU (rtol 1e-3),
+   ``main_bc_finetune`` with eval_batch 1 and 4 (finite losses, the
+   stats pickle and the checkpoint), the training frames/s and the eval
+   ms per env step.
 
 The last three lines are the card's name and power limit, one JSON
 object with the kernels' numbers, and the verdict
@@ -81,6 +97,7 @@ PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 PEAK_BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
 PEAK_F32_FLOP_PER_S = 67e12    # H100 SXM float32 outside the tensor cores
 SEED = 0
+BULK_BATCH = 256               # the service's bulk batch (embed_batches)
 
 # ResNet-50 at 224 input: (first block of the shape class, H in, stride,
 # Cin, P, Cout, projection shortcut, launches per forward on v1, on v2)
@@ -120,6 +137,14 @@ F32_BATCHES = (1, 4, 32)       # ... and the bulk embedder's batch
 # Blocks whose f32 launches at the eval batches must spread over more
 # blocks than one a tile (pick_launch's cluster split).
 SPLIT_BLOCKS = ("layer3.1", "layer4.0", "layer4.1")
+# Phase 8, the rest of the encoder zoo: (name, the card's default route,
+# kernel launches per forward on it).  An uber fusion runs three trunks:
+# 13 v1 launches for moco_aug_l3, 16 for moco_aug_l4, 16 for moco_aug.
+ZOO = [("moco_aug_uber_345", "v1", {"fused_bottleneck": 45}),
+       ("clip_vit", "off", {}), ("clip_rn50", "off", {}),
+       ("maskrcnn_l3", "off", {})]
+ZOO_CPU_FRAMES = 8             # frames of the f32 forward, card vs CPU
+FINETUNE_STEPS = 5             # conv-policy train steps, card vs CPU
 # The bf16 and f32 engines of fused_bottleneck.cu, FLAT = false (v1) and
 # true (v2).
 BF16_INSTANCES = {"bottleneck_mma_kernel<0>", "bottleneck_mma_kernel<1>"}
@@ -312,9 +337,9 @@ def drive_service(torch, fb, fa, net, frames, ref, per_forward, label):
     reset_launches(fb, fa)
     one = net(frames[:1])
     three = net(frames[1:4])
-    bulk = net.embed_batches(frames, 256)
+    bulk = net.embed_batches(frames, BULK_BATCH)
     counts = count_launches(fb, fa)
-    forwards = 1 + 1 + len(frames) // 256
+    forwards = 1 + 1 + len(frames) // BULK_BATCH
     want = {k: per_forward.get(k, 0) * forwards for k in KERNELS}
     if counts != want:
         raise AssertionError(f"{label}: launches {counts} != {want}")
@@ -335,7 +360,7 @@ def drive_service(torch, fb, fa, net, frames, ref, per_forward, label):
 
 
 def f32_reference(torch, net, frames):
-    ref = net.embed_batches(frames, 256)
+    ref = net.embed_batches(frames, BULK_BATCH)
     if ref.shape != (len(frames), net.out_size) or not np.isfinite(ref).all():
         raise AssertionError(f"f32 reference: {ref.shape}")
     return torch.from_numpy(ref)
@@ -908,6 +933,228 @@ def bc_slice(torch, fb, fa, device, smi, workdir):
     return launches
 
 
+def load_net(EmbeddingNet, name, checkpoint_dir, **kwargs):
+    """``EmbeddingNet(name)`` through the pretrained path from
+    ``checkpoint_dir``; a missing file (which would warn and fall back to
+    the seeded init) fails."""
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        return EmbeddingNet(name, checkpoint_dir=checkpoint_dir, **kwargs)
+
+
+def zoo_slice(torch, fb, fa, frames, device, smi, workdir):
+    """Phase 8a and 8b: each zoo encoder at full width on its card default
+    route (bf16) answers a batch of 1, a batch of 3 and the bulk path,
+    held against its f32 ``off`` path, which is held against the CPU;
+    the uber fusion also in f32 on v1 at the eval batches; then frames/s
+    at batch 256 bf16.  Returns the launches."""
+    import os
+
+    from pvr_habitat_tpu_torch.models.embedding_net import EmbeddingNet
+    from pvr_habitat_tpu_torch.tools import zoo_checkpoints
+
+    ckpt_dir = os.path.join(workdir, "zoo")
+    os.makedirs(ckpt_dir)
+    start = time.perf_counter()
+    for name, _, _ in ZOO:
+        zoo_checkpoints.write(name, ckpt_dir, SEED)
+    print(f"zoo checkpoints (seeded, trained-like BN) written in "
+          f"{time.perf_counter() - start:.1f} s", flush=True)
+    launches = {k: 0 for k in KERNELS}
+    dev_frames = torch.from_numpy(frames[:BULK_BATCH]).to(device)
+    for name, route, per_forward in ZOO:
+        start = time.perf_counter()
+        net32 = load_net(EmbeddingNet, name, ckpt_dir, fused="off")
+        ref = f32_reference(torch, net32, frames)
+        cpu = load_net(EmbeddingNet, name, ckpt_dir, device="cpu")
+        want = cpu(frames[:ZOO_CPU_FRAMES])
+        np.testing.assert_allclose(ref[:ZOO_CPU_FRAMES].numpy(), want,
+                                   atol=1e-3, rtol=1e-3)
+        err = np.abs(ref[:ZOO_CPU_FRAMES].numpy() - want).max()
+        print(f"{name} f32 off, card vs CPU ({ZOO_CPU_FRAMES} frames): "
+              f"max_abs_err {err:.3g} (atol=rtol=1e-3)", flush=True)
+        del cpu
+        net = load_net(EmbeddingNet, name, ckpt_dir,
+                       compute_dtype=torch.bfloat16)
+        if net.fused != route:
+            raise AssertionError(f"{name} default route {net.fused}")
+        counts = drive_service(torch, fb, fa, net, frames, ref, per_forward,
+                               f"{name} route {route}")
+        for k in KERNELS:
+            launches[k] += counts[k]
+        nets = {route: net}
+        if route != "off":
+            # f32 on the kernel route at the eval batches, against off
+            v1 = load_net(EmbeddingNet, name, ckpt_dir, fused=route)
+            reset_launches(fb, fa)
+            for n in EVAL_BATCHES:
+                got, want = v1(frames[:n]), net32(frames[:n])
+                np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+                print(f"{name} f32 {route} vs off, batch {n}: max_abs_err "
+                      f"{np.abs(got - want).max():.3g} (atol=rtol=1e-4)",
+                      flush=True)
+            counts = count_launches(fb, fa)
+            want = {k: per_forward.get(k, 0) * len(EVAL_BATCHES)
+                    for k in KERNELS}
+            if counts != want:
+                raise AssertionError(f"{name} f32 {route}: launches {counts}")
+            for k in KERNELS:
+                launches[k] += counts[k]
+            del v1
+            nets["off"] = load_net(EmbeddingNet, name, ckpt_dir,
+                                   compute_dtype=torch.bfloat16, fused="off")
+        del net32
+        for r, m in nets.items():
+            ms = time_ms(torch, lambda: m._forward(dev_frames), reps=5,
+                         warmup=1)
+            print(f"e2e {name} {r}: {BULK_BATCH / ms * 1e3:.1f} frames/s "
+                  f"({ms:.3f} ms per batch of {BULK_BATCH} bf16, frames on "
+                  f"device) [{smi}]",
+                  flush=True)
+        if route != "off":
+            profile_call(torch, lambda: net._forward(dev_frames),
+                         f"{name} {route}")
+        print(f"{name}: {time.perf_counter() - start:.1f} s", flush=True)
+    return launches
+
+
+def finetune_slice(torch, fb, fa, device, smi, workdir):
+    """Phase 8c: the conv policy on phase 7's raw pickle: train steps at
+    full width on the card against the CPU from the same state (in a
+    worker thread beside the trainer runs), ``main_bc_finetune`` with
+    eval_batch 1 and 4, the training frames/s and the eval ms per env
+    step.  Nothing here reaches a kernel; returns the (zero) launches."""
+    import os
+    import random
+    from concurrent.futures import ThreadPoolExecutor
+
+    from pvr_habitat_tpu_torch import main_bc_finetune
+    from pvr_habitat_tpu_torch.data import formats, sampler
+    from pvr_habitat_tpu_torch.envs.environment import make_environment
+    from pvr_habitat_tpu_torch.train import bc_step, evaluate
+    from pvr_habitat_tpu_torch.utils import checkpoint as ckpt
+    from pvr_habitat_tpu_torch.utils.flags import default_flags
+
+    data = formats.read_habitat_data(formats.raw_path(workdir, BC_ENV),
+                                     verbose=False)
+    n = len(data["action"])
+    fl = default_flags()
+    b, t = fl.batch_size, fl.unroll_length
+    random.seed(SEED)
+    starts = [sampler.sample_with_minimum_distance(n, b, t)
+              for _ in range(FINETUNE_STEPS)]
+    arrays = dict(obs=data["obs"], action=data["action"].astype(np.int64),
+                  done=data["done"].astype(bool))
+    cpu = torch.device("cpu")
+    tensors, cpu_tensors = (sampler.to_tensors(arrays, dev)
+                            for dev in (device, cpu))
+    if tensors["obs"].dtype != torch.uint8:
+        raise AssertionError(f"frames {tensors['obs'].dtype}")
+    state, opt = bc_step.create_train_state(
+        np.random.RandomState(SEED), data["obs"].shape[1:], 3, fl,
+        conv_policy=True, max_epochs=100, device=device)
+    step = bc_step.make_train_step(opt, conv_policy=True)
+    snapshots, card = [], []
+    for row in starts:
+        snapshots.append(train_state_to(bc_step, state, cpu))
+        state, m = step(state, sampler.gather_unrolls(tensors, row, t))
+        card.append([m["loss"].item(), m["gradient_norm"].item()])
+    card = np.asarray(card)
+    if not np.isfinite(card).all():
+        raise AssertionError(f"finetune steps: {card}")
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for row in starts * 2:
+        state, m = step(state, sampler.gather_unrolls(tensors, row, t))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - start
+    print(f"finetune training: {b * t * 2 * FINETUNE_STEPS / seconds:.1f} "
+          f"frames/s ({seconds / (2 * FINETUNE_STEPS) * 1e3:.2f} ms a step "
+          f"of B {b} x T {t} uint8 64x64x3, eval excluded) [{smi}]",
+          flush=True)
+    profile_call(torch, lambda: step(
+        state, sampler.gather_unrolls(tensors, starts[0], t)),
+        "finetune train step")
+
+    def cpu_steps(threads):
+        torch.set_num_threads(threads)
+        out = []
+        for snapshot, row in zip(snapshots, starts):
+            _, m = step(snapshot, sampler.gather_unrolls(cpu_tensors, row, t))
+            out.append([m["loss"].item(), m["gradient_norm"].item()])
+        return np.asarray(out)
+
+    stem = f"{BC_ENV}_emrandom_finetuned_s1_{BC_ENV}"
+
+    def trainers():
+        for k in EVAL_BATCHES:
+            save = os.path.join(workdir, f"finetune_k{k}")
+            flags = default_flags(
+                env=BC_ENV, to_env=BC_ENV, data_path=workdir, save_path=save,
+                max_frames=b * t * 4, eval_frequency=2, n_episodes_test=2,
+                max_episode_steps=BC_EPISODE_STEPS, eval_batch=k)
+            reset_launches(fb, fa)
+            start = time.perf_counter()
+            stats = quiet(main_bc_finetune.run, flags)[BC_ENV]
+            seconds = time.perf_counter() - start
+            counts = count_launches(fb, fa)
+            losses = stats["training_loss"][1:]
+            if any(counts.values()) or len(losses) != 2 \
+                    or not np.isfinite(losses).all() \
+                    or sorted(os.listdir(save)) != [stem + ".pickle",
+                                                    stem + ".tar"]:
+                raise AssertionError(f"main_bc_finetune eval_batch {k}: "
+                                     f"{stats}, launches {counts}")
+            print(f"main_bc_finetune eval_batch {k}: frames "
+                  f"{stats['frames']}, losses {losses}, returns "
+                  f"{stats['episode_return']}, launches {counts}, "
+                  f"{seconds:.1f} s", flush=True)
+        return os.path.join(workdir, "finetune_k1", stem + ".tar")
+
+    threads = torch.get_num_threads()
+    with ThreadPoolExecutor(1) as pool:
+        reference = pool.submit(cpu_steps, max(1, threads - 2))
+        checkpoint = trainers()
+        on_cpu = reference.result()
+    torch.set_num_threads(threads)
+    np.testing.assert_allclose(card, on_cpu, rtol=1e-3)
+    rel = np.abs(card / on_cpu - 1).max(axis=0)
+    print(f"finetune steps (B {b}, T {t}) x{FINETUNE_STEPS}, each from the "
+          f"same state, card vs CPU: losses {card[:, 0].round(6).tolist()}, "
+          f"max rel err loss {rel[0]:.3g}, gradient norm {rel[1]:.3g} "
+          f"(rtol 1e-3)", flush=True)
+
+    payload = ckpt.load_checkpoint(checkpoint)
+    if "embedding_model_state_dict" in payload:
+        raise AssertionError("finetune checkpoint holds an encoder")
+    params, stats = ckpt.split_actor_state(payload["actor_model_state_dict"],
+                                           device)
+    runner = StepCounter(evaluate.PolicyRunner(params, stats,
+                                               conv_policy=True))
+    env_flags = default_flags(env=BC_ENV, max_episode_steps=BC_EPISODE_STEPS)
+    keys = ["episode_return"]
+    for k in EVAL_BATCHES:
+        envs = [quiet(make_environment, env_flags, None, actor_id=i)
+                for i in range(1, k + 1)]
+
+        def run_eval():
+            if k == 1:
+                return evaluate.test(runner, envs[0], keys, 1)
+            return evaluate.batched_test(runner, envs, keys, k)
+        run_eval()                      # warm-up
+        runner.count = 0
+        start = time.perf_counter()
+        run_eval()
+        step_ms = (time.perf_counter() - start) / runner.count * 1e3
+        print(f"finetune eval K={k}: {step_ms:.3f} ms per step of the K "
+              f"envs over {runner.count} steps (conv policy on raw frames) "
+              f"[{smi}]",
+              flush=True)
+    return {k: 0 for k in KERNELS}
+
+
 def main():
     import torch
 
@@ -1028,8 +1275,8 @@ def main():
     t0 = phase("7 slice: BC trainer and online eval (resnet50)")
     check_slice_kernel_shapes(torch, fb, params, activations, max_err)
     print(f"f32 kernel checks {time.perf_counter() - t0:.1f} s", flush=True)
-    with tempfile.TemporaryDirectory() as workdir:
-        counts = bc_slice(torch, fb, fa, device, smi, workdir)
+    workdir = tempfile.TemporaryDirectory()
+    counts = bc_slice(torch, fb, fa, device, smi, workdir.name)
     for k in KERNELS:
         launches[k] += counts[k]
     start = time.perf_counter()
@@ -1038,6 +1285,19 @@ def main():
     time_f32_eval_batches(torch, F, fb, params, activations,
                           {"v1": v1_32, "off": net32}, device, smi)
     print(f"f32 eval-batch times {time.perf_counter() - start:.1f} s")
+    print(f"slice phase {time.perf_counter() - t0:.1f} s")
+    del v1_32, nets, default, mae
+
+    t0 = phase("8 slice: encoder zoo (bf16) and finetune")
+    with workdir:
+        for part in (
+                lambda: zoo_slice(torch, fb, fa, frames, device, smi,
+                                  workdir.name),
+                lambda: finetune_slice(torch, fb, fa, device, smi,
+                                       workdir.name)):
+            counts = part()
+            for k in KERNELS:
+                launches[k] += counts[k]
     print(f"slice phase {time.perf_counter() - t0:.1f} s")
 
     line = {"kernels": [{

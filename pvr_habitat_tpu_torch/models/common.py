@@ -64,6 +64,23 @@ def max_pool(x, window=3, stride=2, padding=1):
     return y.permute(0, 2, 3, 1)
 
 
+def avg_pool(x, k):
+    """NHWC k x k average pool at stride k, VALID (CLIP's ``AvgPool2d(k)``;
+    the JAX package sums with ``reduce_window`` and divides by k*k)."""
+    y = F.avg_pool2d(x.permute(0, 3, 1, 2), k, k)
+    return y.permute(0, 2, 3, 1)
+
+
+def sub(params, prefix):
+    """View of a flat param dict under a key prefix."""
+    pre = prefix + "."
+    return {k[len(pre):]: v for k, v in params.items() if k.startswith(pre)}
+
+
+def add_prefix(params, prefix):
+    return {f"{prefix}.{k}": v for k, v in params.items()}
+
+
 def flatten_nchw(y):
     """(N, H, W, C) -> (N, C*H*W) in torch's NCHW order."""
     return y.permute(0, 3, 1, 2).reshape(y.shape[0], -1)
@@ -94,6 +111,18 @@ def gelu(x):
 # draw the same numpy stream as the JAX package's, and return PyTorch's
 # OIHW where the JAX package returns HWIO.
 # -----------------------------------------------------------------------------
+
+
+class ShapeRNG:
+    """Stands in for ``np.random.RandomState`` where only an init's keys
+    and shapes are wanted (a checkpoint's expected names): it draws
+    zeros, so it skips the draws' cost."""
+
+    @staticmethod
+    def normal(loc=0.0, scale=1.0, size=None):
+        return np.zeros(size, np.float32)
+
+    uniform = normal
 
 
 def kaiming_normal_conv(rng, shape_oihw):

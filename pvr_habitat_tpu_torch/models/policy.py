@@ -2,8 +2,14 @@
 
 ``PolicyNet`` — MLP(obs->1024->1024) -> 2-layer LSTM(1024) -> policy +
 baseline heads, optional input BatchNorm1d, orthogonal init
-(reference: src/models.py:13-89).  The conv policy of the finetune path
-waits for that mode (ROADMAP.md queue 1, item 2).
+(reference: src/models.py:13-89).
+
+``PolicyNetWithConv`` — the same head over raw pixels: per-frame 5x(conv3x3
+s2, ELU) feature stack, frames concatenated, inputs scaled by 1/255
+(reference: src/models.py:96-197; the finetune path only).  It runs in
+torch's own layout: each frame goes through ``x.transpose(1, 3)`` as the
+reference's does, so the convs see H and W swapped, and the maps are
+concatenated along dim 3 and flattened in NCHW order.
 
 Parameter keys mirror the torch module paths, as in the JAX package, so
 checkpoints of either package load in the other:
@@ -20,6 +26,7 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from pvr_habitat_tpu_torch.models import common as cm
 from pvr_habitat_tpu_torch.models import convert
@@ -81,6 +88,44 @@ def init_policy_params(rng, obs_size, num_actions, batch_norm=False,
             convert.params_from_numpy(stats, device))
 
 
+def init_conv_policy_params(rng, obs_shape, num_actions, batch_norm=False,
+                            device=None):
+    """obs_shape = (H, W, C*n_frames) raw pixels.  Returns (params,
+    batch_stats); the convs are OIHW."""
+    device = resolve_device(device)
+    h, w, cn = obs_shape
+    n_frames = cn // 3
+    gain = math.sqrt(2.0)
+    params, stats = {}, {}
+    ch_in = 3
+    for i in range(5):
+        params[f"feat_extract.{2 * i}.weight"] = cm.orthogonal_conv(
+            rng, (32, ch_in, 3, 3), gain)
+        params[f"feat_extract.{2 * i}.bias"] = np.zeros(32, np.float32)
+        ch_in = 32
+    side_h, side_w = h, w
+    for _ in range(5):
+        side_h = (side_h + 1) // 2
+        side_w = (side_w + 1) // 2
+    conv_out = 32 * side_h * side_w * n_frames
+
+    fc0 = 1 if batch_norm else 0
+    if batch_norm:
+        params["fc.0.weight"] = np.ones(conv_out, np.float32)
+        params["fc.0.bias"] = np.zeros(conv_out, np.float32)
+        stats["fc.0.running_mean"] = np.zeros(conv_out, np.float32)
+        stats["fc.0.running_var"] = np.ones(conv_out, np.float32)
+    params[f"fc.{fc0}.weight"] = cm.orthogonal(rng, (HIDDEN, conv_out), gain)
+    params[f"fc.{fc0}.bias"] = np.zeros(HIDDEN, np.float32)
+    params[f"fc.{fc0 + 2}.weight"] = cm.orthogonal(rng, (HIDDEN, HIDDEN), gain)
+    params[f"fc.{fc0 + 2}.bias"] = np.zeros(HIDDEN, np.float32)
+    _init_lstm(params, rng, HIDDEN)
+    _init_heads(params, rng, num_actions)
+    # already in the port's layout: no HWIO -> OIHW bridge
+    return ({k: torch.from_numpy(v).to(device) for k, v in params.items()},
+            {k: torch.from_numpy(v).to(device) for k, v in stats.items()})
+
+
 def initial_state(batch_size, device=None):
     """Zero (h, c), each (L, B, H) (reference: src/models.py:52-54)."""
     device = resolve_device(device)
@@ -119,6 +164,32 @@ def _batch_norm_1d(x, params, batch_stats, train):
     return x, new_stats
 
 
+def _trunk_to_outputs(x, params, done, core_state, fc0, t, b, train,
+                      generator):
+    """Shared tail: the two ReLU linears, the LSTM unroll, the heads and
+    the action choice."""
+    x = torch.relu(cm.linear(x, params, f"fc.{fc0}"))
+    x = torch.relu(cm.linear(x, params, f"fc.{fc0 + 2}"))
+    notdone = 1.0 - done.float()
+    layers = stack_lstm_params(params, "core", LSTM_LAYERS)
+    core_out, new_state = lstm_scan(layers, x.reshape(t, b, HIDDEN),
+                                    core_state[0], core_state[1], notdone)
+    flat = core_out.reshape(t * b, HIDDEN)
+    logits = cm.linear(flat, params, "policy")
+    baseline = cm.linear(flat, params, "baseline")
+    if train:
+        if generator is None:
+            raise ValueError("train-mode action sampling needs a generator")
+        action = torch.multinomial(torch.softmax(logits.detach(), dim=-1), 1,
+                                   generator=generator)
+    else:
+        action = torch.argmax(logits, dim=-1)
+    outputs = dict(policy_logits=logits.reshape(t, b, -1),
+                   baseline=baseline.reshape(t, b),
+                   action=action.reshape(t, b))
+    return outputs, new_state
+
+
 def apply_policy(params, batch_stats, inputs, core_state, *, batch_norm=False,
                  train=False, generator=None):
     """PolicyNet forward.
@@ -138,24 +209,38 @@ def apply_policy(params, batch_stats, inputs, core_state, *, batch_norm=False,
     if batch_norm:
         x, new_stats = _batch_norm_1d(x, params, batch_stats, train)
         fc0 = 1
-    x = torch.relu(cm.linear(x, params, f"fc.{fc0}"))
-    x = torch.relu(cm.linear(x, params, f"fc.{fc0 + 2}"))
+    outputs, new_state = _trunk_to_outputs(x, params, done, core_state, fc0,
+                                           t, b, train, generator)
+    return outputs, new_state, new_stats
 
-    notdone = 1.0 - done.float()
-    layers = stack_lstm_params(params, "core", LSTM_LAYERS)
-    core_out, new_state = lstm_scan(layers, x.reshape(t, b, HIDDEN),
-                                    core_state[0], core_state[1], notdone)
-    flat = core_out.reshape(t * b, HIDDEN)
-    logits = cm.linear(flat, params, "policy")
-    baseline = cm.linear(flat, params, "baseline")
-    if train:
-        if generator is None:
-            raise ValueError("train-mode action sampling needs a generator")
-        action = torch.multinomial(torch.softmax(logits.detach(), dim=-1), 1,
-                                   generator=generator)
-    else:
-        action = torch.argmax(logits, dim=-1)
-    outputs = dict(policy_logits=logits.reshape(t, b, -1),
-                   baseline=baseline.reshape(t, b),
-                   action=action.reshape(t, b))
+
+def apply_conv_policy(params, batch_stats, inputs, core_state, *,
+                      batch_norm=False, train=False, generator=None):
+    """PolicyNetWithConv forward over raw pixels.
+
+    inputs: dict(obs=(T, B, H, W, C*n) uint8 or float, done=(T, B)).
+    Returns (outputs, new_core_state, new_batch_stats), as
+    ``apply_policy``."""
+    obs, done = inputs["obs"], inputs["done"]
+    t, b, h, w, cn = obs.shape
+    x = obs.reshape(t * b, h, w, cn).float() / 255.0
+    feats = []
+    for f in range(cn // 3):
+        # (N, H, W, 3) -> (N, 3, W, H): the reference's x.transpose(1, 3)
+        # (src/models.py:169), so the convs run over swapped H and W
+        y = x[..., 3 * f:3 * (f + 1)].transpose(1, 3)
+        for i in range(5):
+            y = F.elu(F.conv2d(y, params[f"feat_extract.{2 * i}.weight"],
+                               params[f"feat_extract.{2 * i}.bias"], 2, 1))
+        feats.append(y)
+    # the (N, 32, W', H') maps side by side along dim 3, flattened NCHW
+    x = torch.cat(feats, dim=3).reshape(t * b, -1)
+
+    new_stats = batch_stats
+    fc0 = 0
+    if batch_norm:
+        x, new_stats = _batch_norm_1d(x, params, batch_stats, train)
+        fc0 = 1
+    outputs, new_state = _trunk_to_outputs(x, params, done, core_state, fc0,
+                                           t, b, train, generator)
     return outputs, new_state, new_stats

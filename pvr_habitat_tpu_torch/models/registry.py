@@ -1,14 +1,15 @@
 """Encoder registry: embedding name -> (preprocess, apply_fn, params,
 out_size) handle (counterpart of ``pvr_habitat_tpu/models/registry.py``).
 
-This port carries ``true_state``, ``random``, the whole ResNet family
-(resnet18/34/50, places, demy, moco, the l3/l4 grafts) and the MAE ViTs
-(mae_base/large/huge).  Pretrained checkpoints keep the reference's
-filenames and key surgery; a torch checkpoint's state dict already is
-the port's flat dict (OIHW).  When a file is absent the encoder falls
-back to a deterministic, name-seeded random init with the JAX package's
-numpy stream, so both packages build the same weights for the same
-name.
+Every name of the JAX package's zoo (``all_encoder_names``):
+``true_state``, ``random``, the ResNet family (resnet18/34/50, places,
+demy, moco, the l3/l4 grafts), the MoCo "uber" fusions of those, the MAE
+ViTs, the CLIP towers and the Mask R-CNN C4 backbone.  Pretrained
+checkpoints keep the reference's filenames and key surgery; a torch
+checkpoint's state dict already is the port's flat dict (OIHW).  When a
+file is absent the encoder falls back to a deterministic, name-seeded
+random init with the JAX package's numpy stream, so both packages build
+the same weights for the same name.
 """
 
 import hashlib
@@ -20,8 +21,11 @@ from dataclasses import dataclass
 from typing import Callable, Optional
 
 import numpy as np
+import torch
 
-from pvr_habitat_tpu_torch.models import convert, random_conv, resnet, vit
+from pvr_habitat_tpu_torch.models import common as cm
+from pvr_habitat_tpu_torch.models import (clip, convert, maskrcnn,
+                                          random_conv, resnet, vit)
 from pvr_habitat_tpu_torch.models.convert import FLAT_FORMAT
 from pvr_habitat_tpu_torch.ops import image as im
 from pvr_habitat_tpu_torch.utils.platform import resolve_device
@@ -37,6 +41,7 @@ class EncoderHandle:
     # The ``fused`` values apply_fn takes; the first kernel route listed
     # after "off" is the card's default (EmbeddingNet).
     fused_routes: tuple = ("off",)
+    sub_names: tuple = ()    # uber constituents
 
 
 # ---------------------------------------------------------------------------
@@ -79,6 +84,26 @@ CHECKPOINT_FILES = {
     "clip_vit": "clip_vit_b32.pth",
     "clip_rn50": "clip_rn50.pth",
 }
+
+
+# Uber fusions: concatenated constituents (src/embeddings.py:195-280).
+_UBER_SUFFIX = {"345": ("_l3", "_l4", ""), "35": ("_l3", ""),
+                "34": ("_l3", "_l4"), "45": ("_l4", "")}
+
+
+def uber_constituents(name):
+    """'moco_aug_places_uber_345' -> ('moco_aug_places_l3', ...)."""
+    base, code = name.rsplit("_uber_", 1)
+    return tuple(base + suffix for suffix in _UBER_SUFFIX[code])
+
+
+def all_uber_names():
+    names = []
+    for base in ("moco_aug", "moco_aug_places", "moco_croponly",
+                 "moco_croponly_places"):
+        for code in _UBER_SUFFIX:
+            names.append(f"{base}_uber_{code}")
+    return names
 
 
 def _name_seed(name, run_id=0):
@@ -163,21 +188,36 @@ def _resnet_family(name):
                 convert.strip_module_prefix)
     if name.startswith("moco_") and name.endswith(("_l3", "_l4")):
         return (resnet.ResNetSpec(50, cut=name[-2:]), convert.moco_encoder_q)
-    if name.startswith("moco_") and "_uber_" not in name:
+    if name.startswith("moco_"):
         return resnet.ResNetSpec(50), convert.moco_encoder_q
     return None
 
 
-_NOT_PORTED = (
-    ("_uber_", "uber fusions: ROADMAP.md queue 1, item 5"),
-    ("clip_", "CLIP: ROADMAP.md queue 1, item 5"),
-    ("maskrcnn_", "Mask R-CNN: ROADMAP.md queue 1, item 5"),
-)
+def _build_uber(name, subs):
+    """The fusion of ``subs`` (the constituents' handles, in
+    ``uber_constituents`` order): their params under ``models.{i}.``, their
+    outputs concatenated.  ``fused`` goes to every constituent, so its
+    routes are the ones all constituents share."""
+    params = {}
+    for i, handle in enumerate(subs):
+        params.update(cm.add_prefix(handle.params, f"models.{i}"))
+    fns = tuple(h.apply_fn for h in subs)
+    routes = tuple(r for r in subs[0].fused_routes
+                   if all(r in h.fused_routes for h in subs))
+
+    def uber_apply(p, x, train=False, fused="off"):
+        return torch.cat([fn(cm.sub(p, f"models.{i}"), x, train=train,
+                             fused=fused) for i, fn in enumerate(fns)],
+                         dim=-1)
+
+    return EncoderHandle(name, im.default_preprocess(), uber_apply, params,
+                         sum(h.out_size for h in subs), routes,
+                         sub_names=tuple(h.name for h in subs))
 
 
 def build_encoder(name, *, pretrained=True, checkpoint_dir=None, run_id=0,
                   device=None):
-    """Construct an EncoderHandle for a name of this slice."""
+    """Construct an EncoderHandle for any zoo name."""
     dev = resolve_device(device)
 
     if name == "true_state":
@@ -191,15 +231,27 @@ def build_encoder(name, *, pretrained=True, checkpoint_dir=None, run_id=0,
             name, pre, random_conv.apply, params,
             random_conv.out_size(pre.crop_size))
 
+    if "_uber_" in name:
+        return _build_uber(name, [
+            build_encoder(s, pretrained=pretrained,
+                          checkpoint_dir=checkpoint_dir, run_id=run_id,
+                          device=dev)
+            for s in uber_constituents(name)])
+
     if name in vit.MAE_CONFIGS:
         return vit.build_mae_encoder(name, pretrained=pretrained,
                                      checkpoint_dir=checkpoint_dir,
                                      device=dev)
 
-    for marker, item in _NOT_PORTED:
-        if marker in name:
-            raise NotImplementedError(
-                f"encoder '{name}' is not ported yet ({item})")
+    if name.startswith("clip_"):
+        return clip.build_clip_encoder(name, pretrained=pretrained,
+                                       checkpoint_dir=checkpoint_dir,
+                                       device=dev)
+
+    if name == "maskrcnn_l3":
+        return maskrcnn.build_maskrcnn_encoder(
+            pretrained=pretrained, checkpoint_dir=checkpoint_dir,
+            device=dev)
 
     fam = _resnet_family(name)
     if fam is None:
@@ -228,3 +280,26 @@ def build_encoder(name, *, pretrained=True, checkpoint_dir=None, run_id=0,
     return EncoderHandle(name, pre, rn_apply, params,
                          spec.out_size(pre.crop_size),
                          resnet.fused_routes(spec))
+
+
+def all_encoder_names():
+    """The full zoo (reference registry, src/embeddings.py:90-321)."""
+    moco_bases = [
+        "moco_aug", "moco_aug_habitat", "moco_aug_mujoco", "moco_aug_uber",
+        "moco_aug_places", "moco_croponly", "moco_croponly_places",
+        "moco_croponly_habitat", "moco_croponly_mujoco",
+        "moco_croponly_uber", "moco_coloronly",
+    ]
+    moco_cuts = [
+        "moco_aug_l4", "moco_aug_l3", "moco_aug_places_l4",
+        "moco_aug_places_l3", "moco_croponly_l4", "moco_croponly_l3",
+        "moco_croponly_places_l4", "moco_croponly_places_l3",
+    ]
+    return (
+        ["random", "resnet18", "resnet34", "resnet50", "resnet50_places",
+         "resnet50_l4", "resnet50_l3", "resnet50_places_l4",
+         "resnet50_places_l3", "demy"]
+        + moco_bases + moco_cuts + all_uber_names()
+        + ["maskrcnn_l3", "clip_vit", "clip_rn50",
+           "mae_base", "mae_large", "mae_huge", "true_state"]
+    )

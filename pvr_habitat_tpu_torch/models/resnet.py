@@ -57,7 +57,7 @@ class ResNetSpec:
         return 512 * EXPANSION[self.block]
 
     def param_names(self):
-        return sorted(_init_numpy(self, np.random.RandomState(0)).keys())
+        return sorted(_init_numpy(self, cm.ShapeRNG()).keys())
 
 
 def _grafted(spec, stage_idx):

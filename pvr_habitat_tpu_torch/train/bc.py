@@ -1,18 +1,20 @@
 """The BC trainer (counterpart of ``pvr_habitat_tpu/train/bc.py``).
 
-One parameterized ``run(flags, mode)`` implements two of the reference's
+One parameterized ``run(flags, mode)`` implements the reference's three
 entry points (cited lines are the behavior contract):
 
 - mode='precomputed'   — main_bc_2.py:26-262 (train on cached embeddings)
 - mode='embed_at_load' — main_bc_1.py:26-274 (embed raw frames at load
                          time; required for the seed-dependent 'random'
                          encoder)
+- mode='finetune'      — main_bc_finetune.py:25-247 (end-to-end conv
+                         policy on raw pixels; no frozen encoder)
 
-``mode='finetune'``, ``--mesh_shape`` and ``--coordinator`` are not
-ported yet and raise.  Everything runs on ``cuda`` unless
-``--disable_cuda`` asks for the CPU.  The dataset is device-resident
-when it fits, the unroll gather runs where the dataset is, and the
-metrics stay on the device between eval points.
+``--mesh_shape`` and ``--coordinator`` are not ported yet and raise.
+Everything runs on ``cuda`` unless ``--disable_cuda`` asks for the CPU.
+The dataset is device-resident when it fits (uint8 frames for
+finetune), the unroll gather runs where the dataset is, and the metrics
+stay on the device between eval points.
 """
 
 import copy
@@ -35,7 +37,6 @@ from pvr_habitat_tpu_torch.utils import profiling
 from pvr_habitat_tpu_torch.utils import stats as stats_util
 from pvr_habitat_tpu_torch.utils.platform import resolve_device
 
-FINETUNE_ITEM = "ROADMAP.md queue 1, item 2"
 PARALLEL_ITEM = "ROADMAP.md queue 1, item 7"
 
 
@@ -118,6 +119,18 @@ def _load_embed_at_load(flags, from_env, embedding_model):
     return {k: np.concatenate(v) for k, v in parts.items()}
 
 
+def _load_finetune(flags, from_env):
+    """main_bc_finetune.py:103-125: raw pixel trajectories."""
+    parts = {k: [] for k in ("obs", "action", "reward", "done")}
+    for env_id in from_env.split(","):
+        data = formats.load_pickle(formats.raw_path(flags.data_path, env_id))
+        n_traj = (flags.batch_size * flags.unroll_length if flags.debug
+                  else len(data["obs"]))
+        for key in ("obs", "action", "reward", "done"):
+            parts[key].append(np.concatenate(data[key][:n_traj]))
+    return {k: np.concatenate(v) for k, v in parts.items()}
+
+
 def _evaluate(runner, eval_envs, stat_keys, n_episodes, embedding=None):
     if len(eval_envs) > 1 and embedding is not None:
         # Raw-frame envs; preprocess+encoder+policy in one tick (see
@@ -132,10 +145,7 @@ def _evaluate(runner, eval_envs, stat_keys, n_episodes, embedding=None):
 
 def run(flags, mode="precomputed"):
     flags = copy.copy(flags)
-    if mode == "finetune":
-        raise NotImplementedError(
-            f"mode='finetune' is not ported yet ({FINETUNE_ITEM})")
-    if mode not in ("precomputed", "embed_at_load"):
+    if mode not in ("precomputed", "embed_at_load", "finetune"):
         raise ValueError(f"unknown mode: {mode}")
     check_single_device(flags)
     device = flags_device(flags)
@@ -148,9 +158,11 @@ def run(flags, mode="precomputed"):
 
     from_env = flags.env
     to_env = flags.to_env
+    conv_policy = mode == "finetune"
+    embedding_label = "random_finetuned" if conv_policy else None
 
     os.makedirs(flags.save_path, exist_ok=True)
-    save_path = stats_util.run_save_path(flags)
+    save_path = stats_util.run_save_path(flags, embedding_label)
 
     # Resume probe (main_bc_2.py:49-56).
     resume = False
@@ -161,12 +173,15 @@ def run(flags, mode="precomputed"):
             return
         resume = True
 
-    embedding_model = EmbeddingNet(
-        flags.embedding_name, in_channels=3,
-        pretrained=flags.pretrained_embedding if mode == "embed_at_load"
-        else True,
-        train=False, checkpoint_dir=flags.data_path, run_id=flags.run_id,
-        compute_dtype=compute_dtype(flags), device=device)
+    embedding_model = None
+    if not conv_policy:
+        embedding_model = EmbeddingNet(
+            flags.embedding_name, in_channels=3,
+            pretrained=flags.pretrained_embedding if mode == "embed_at_load"
+            else True,
+            train=False, checkpoint_dir=flags.data_path,
+            run_id=flags.run_id, compute_dtype=compute_dtype(flags),
+            device=device)
 
     env_flags = copy.copy(flags)
     env_flags.env = to_env
@@ -174,6 +189,7 @@ def run(flags, mode="precomputed"):
     obs_shape = env.gym_env.observation_space.shape
     num_actions = env.gym_env.action_space.n
     eval_batched_embed = (flags.eval_batch > 1
+                          and embedding_model is not None
                           and flags.embedding_name != "true_state"
                           and flags.num_input_frames == 1)
     if eval_batched_embed:
@@ -189,11 +205,13 @@ def run(flags, mode="precomputed"):
                                       * flags.batch_size) + 1
     state, opt = bc_step.create_train_state(
         np.random.RandomState(flags.run_id), obs_shape, num_actions, flags,
-        max_epochs=max_epochs, seed=flags.run_id, device=device)
+        conv_policy=conv_policy, max_epochs=max_epochs, seed=flags.run_id,
+        device=device)
 
     if resume:
         payload = ckpt.load_checkpoint(save_path + ".tar")
-        if "embedding_model_state_dict" in payload:
+        if embedding_model is not None and \
+                "embedding_model_state_dict" in payload:
             embedding_model.load_state_dict(
                 payload["embedding_model_state_dict"])
         params, batch_stats = ckpt.split_actor_state(
@@ -203,7 +221,7 @@ def run(flags, mode="precomputed"):
                                    state.generator)
 
     print("=== BC run ===")
-    print("   embedding:", flags.embedding_name)
+    print("   embedding:", embedding_label or flags.embedding_name)
     print("   training environment(s):", from_env)
     print("   testing environment(s):", to_env)
     print("   device:", device)
@@ -213,8 +231,10 @@ def run(flags, mode="precomputed"):
     print("=== Loading trajectories ===")
     if mode == "precomputed":
         data = _load_precomputed(flags, from_env)
-    else:
+    elif mode == "embed_at_load":
         data = _load_embed_at_load(flags, from_env, embedding_model)
+    else:
+        data = _load_finetune(flags, from_env)
 
     n_samples = len(data["reward"])
     assert len(data["obs"]) == len(data["action"]) == n_samples == \
@@ -223,7 +243,8 @@ def run(flags, mode="precomputed"):
     print("   total number of samples", n_samples)
 
     train_data, _ = sampler.maybe_device_put(
-        dict(obs=np.asarray(data["obs"], np.float32),
+        dict(obs=np.asarray(data["obs"],
+                            np.uint8 if conv_policy else np.float32),
              action=np.asarray(data["action"], np.int64),
              done=np.asarray(data["done"], bool)),
         device, mode=flags.data_on_device)
@@ -232,11 +253,13 @@ def run(flags, mode="precomputed"):
     # The encoder is frozen during BC training: fetch its state_dict to
     # the host ONCE and reuse it at every checkpoint boundary.  File
     # contents are identical to re-serializing it per save.
-    embedding_state_host = embedding_model.state_dict()
+    embedding_state_host = (embedding_model.state_dict()
+                            if embedding_model is not None else None)
 
     def evaluate():
         runner = PolicyRunner(state.params, state.batch_stats,
-                              batch_norm=flags.batch_norm)
+                              batch_norm=flags.batch_norm,
+                              conv_policy=conv_policy)
         with profiling.annotate("eval"):
             return _evaluate(runner, eval_envs, stat_keys,
                              flags.n_episodes_test,
@@ -266,6 +289,7 @@ def run(flags, mode="precomputed"):
     # holds the dataset.  ``--train_chunk`` saves dispatches in the JAX
     # package only and changes nothing here.
     step_fn = bc_step.make_train_step(opt, batch_norm=flags.batch_norm,
+                                      conv_policy=conv_policy,
                                       max_grad_norm=flags.max_grad_norm)
 
     print("=== Training policy ===")

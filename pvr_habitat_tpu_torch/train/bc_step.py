@@ -33,13 +33,20 @@ class TrainState(NamedTuple):
 
 
 def create_train_state(rng_np, obs_shape, num_actions, flags, *,
-                       max_epochs=None, seed=0, device=None):
+                       conv_policy=False, max_epochs=None, seed=0,
+                       device=None):
     """Fresh TrainState + the optimizer, on ``device`` (``cuda`` unless
-    the caller asks for the CPU)."""
+    the caller asks for the CPU).  ``conv_policy``: the finetune path's
+    policy over raw pixels of ``obs_shape`` (H, W, C)."""
     device = resolve_device(device)
-    params, stats = policy_mod.init_policy_params(
-        rng_np, obs_shape[0], num_actions, batch_norm=flags.batch_norm,
-        device=device)
+    if conv_policy:
+        params, stats = policy_mod.init_conv_policy_params(
+            rng_np, obs_shape, num_actions, batch_norm=flags.batch_norm,
+            device=device)
+    else:
+        params, stats = policy_mod.init_policy_params(
+            rng_np, obs_shape[0], num_actions, batch_norm=flags.batch_norm,
+            device=device)
     opt = optim.RMSpropTorch(
         flags.learning_rate, alpha=flags.alpha, eps=flags.epsilon,
         momentum=flags.momentum, max_epochs=max_epochs)
@@ -55,13 +62,16 @@ def nll_loss(logits, actions):
                            actions.reshape(-1).long())
 
 
-def step_body(state, batch, opt, *, batch_norm=False, max_grad_norm=40.0):
+def step_body(state, batch, opt, *, batch_norm=False, conv_policy=False,
+              max_grad_norm=40.0):
     """One epoch on a gathered batch dict(obs, action, done) of (T, B,
     ...) tensors.  Returns (new_state, dict(loss, gradient_norm))."""
     b = batch["action"].shape[1]
     params = {k: v.detach().requires_grad_() for k, v in
               state.params.items()}
-    outputs, _, new_stats = policy_mod.apply_policy(
+    apply_fn = (policy_mod.apply_conv_policy if conv_policy
+                else policy_mod.apply_policy)
+    outputs, _, new_stats = apply_fn(
         params, state.batch_stats,
         dict(obs=batch["obs"], done=batch["done"]),
         policy_mod.initial_state(b, batch["obs"].device),
@@ -81,15 +91,17 @@ def step_body(state, batch, opt, *, batch_norm=False, max_grad_norm=40.0):
     return new_state, dict(loss=loss.detach(), gradient_norm=gnorm)
 
 
-def make_train_step(opt, *, batch_norm=False, max_grad_norm=40.0):
+def make_train_step(opt, *, batch_norm=False, conv_policy=False,
+                    max_grad_norm=40.0):
     """Returns step(state, batch) -> (state, metrics).
 
-    batch: dict(obs=(T, B, ...), action=(T, B), done=(T, B)) tensors.
+    batch: dict(obs=(T, B, ...), action=(T, B), done=(T, B)) tensors; obs
+    are uint8 frames (T, B, H, W, C) for the conv policy.
     metrics: dict(loss, gradient_norm) — pre-clip norm, as logged by the
     reference.
     """
     def step(state, batch):
         return step_body(state, batch, opt, batch_norm=batch_norm,
-                         max_grad_norm=max_grad_norm)
+                         conv_policy=conv_policy, max_grad_norm=max_grad_norm)
 
     return step

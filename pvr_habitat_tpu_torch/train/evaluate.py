@@ -20,13 +20,16 @@ class PolicyRunner:
     ``sample=True`` selects actions by multinomial sampling from a
     ``torch.Generator`` seeded with ``sample_seed`` instead of argmax (the
     reference's train-mode rule, src/models.py:78-82), while keeping
-    BatchNorm in eval mode — the stochastic-eval A/B knob."""
+    BatchNorm in eval mode — the stochastic-eval A/B knob.  ``conv_policy``
+    takes raw frames (the finetune path's policy)."""
 
     def __init__(self, params, batch_stats=None, *, batch_norm=False,
-                 sample=False, sample_seed=0):
+                 conv_policy=False, sample=False, sample_seed=0):
         self.params = params
         self.batch_stats = batch_stats or {}
         self.batch_norm = batch_norm
+        self.apply_fn = (policy_mod.apply_conv_policy if conv_policy
+                         else policy_mod.apply_policy)
         self.device = next(iter(params.values())).device
         self.generator = None
         if sample:
@@ -38,9 +41,10 @@ class PolicyRunner:
 
     @torch.inference_mode()
     def step(self, obs, done, core_state):
-        """obs (1, K, O), done (1, K) tensors on the policy's device ->
+        """obs (1, K, O) embeddings, or (1, K, H, W, C) raw frames for the
+        conv policy, and done (1, K): tensors on the policy's device ->
         (actions (1, K) tensor, new core state)."""
-        outputs, new_state, _ = policy_mod.apply_policy(
+        outputs, new_state, _ = self.apply_fn(
             self.params, self.batch_stats, dict(obs=obs, done=done),
             core_state, batch_norm=self.batch_norm, train=False)
         if self.generator is None:

@@ -193,8 +193,6 @@ def test_embed_at_load_imagenav_fused_eval_matches_jax(workdir):
 
 def test_unported_options_raise(workdir):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bc.run(_flags(workdir, "x"), mode="finetune")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         bc.run(_flags(workdir, "x", mesh_shape="2,1"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         bc.run(_flags(workdir, "x", coordinator="localhost:1234"))

@@ -117,8 +117,12 @@ def test_no_device_means_cuda():
 
 
 def test_unported_encoders_and_routes_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        EmbeddingNet("clip_vit", pretrained=False, device="cpu")
+    with pytest.raises(NotImplementedError,
+                       match="Requested model not available"):
+        EmbeddingNet("clip_vit_b16", pretrained=False, device="cpu")
+    with pytest.raises(ValueError, match="fused"):
+        EmbeddingNet("moco_aug_uber_34", pretrained=False, device="cpu",
+                     fused="v2")
     with pytest.raises(ValueError, match="fused"):
         EmbeddingNet("resnet18", pretrained=False, device="cpu", fused="v1")
     with pytest.raises(ValueError, match="fused"):

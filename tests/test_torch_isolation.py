@@ -14,9 +14,11 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "pvr_habitat_tpu_torch"
 
 
-# The BC trainer and online-eval slice: its modules and entry points.
+# The BC trainer, online-eval and encoder-zoo slices: their modules and
+# entry points.
 SLICE_MODULES = [f"pvr_habitat_tpu_torch.{name}" for name in (
-    "main_bc_1", "main_bc_2", "main_test", "train.bc", "train.bc_step",
+    "main_bc_1", "main_bc_2", "main_bc_finetune", "main_test",
+    "models.clip", "models.maskrcnn", "train.bc", "train.bc_step",
     "train.evaluate", "train.optim", "envs.api", "envs.environment",
     "envs.fake_nav", "envs.make_env", "envs.wrappers", "data.formats",
     "data.sampler", "models.policy", "ops.lstm", "utils.checkpoint",
