@@ -12,8 +12,10 @@ through ``EmbeddingNet``, the BC pipeline on ResNet-50 embeddings
 (datagen -> bulk embedding -> ``main_bc_2`` -> ``main_test``, and
 ``main_bc_1``), the rest of the encoder zoo (the MoCo uber fusion
 ``moco_aug_uber_345``, CLIP ViT-B/32 and RN50, Mask R-CNN C4) and the
-finetune trainer (``main_bc_finetune``), and holds every kernel of those
-paths against its plain PyTorch version.
+finetune trainer (``main_bc_finetune``), int8 serving through the bulk
+embedder (``ShardedEmbedder``, ``save_embedded_obs --quantize_embed`` and
+``--sharded_embed``), and holds every kernel of those paths against its
+plain PyTorch version.
 Phases, each fatal on failure:
 
 1. device: the card's name and power limit;
@@ -75,7 +77,23 @@ Phases, each fatal on failure:
    100, uint8 64x64x3) on the card against the CPU (rtol 1e-3),
    ``main_bc_finetune`` with eval_batch 1 and 4 (finite losses, the
    stats pickle and the checkpoint), the training frames/s and the eval
-   ms per env step.
+   ms per env step;
+9. slice, int8 serving and the bulk embedder: ``ops/quantize.matmul_int32``
+   (``torch._int_mm``, zero-padded) against the CPU's int32 product,
+   exactly, and its time beside bf16's at the serving shapes; for each
+   encoder of ``INT8`` (resnet50 and mae_base seeded, clip_rn50 and
+   maskrcnn_l3 from phase 8's checkpoints)
+   ``ShardedEmbedder(quantize=True).embed_all`` over phase 4's frames at
+   batch 256, gated on per-row cosine against the f32 ``off`` path and on
+   its launches (12 ``fused_attention`` a mae_base forward, calibration
+   included); the int8 forward on the card against the CPU on the same
+   inputs and scales (cosine > 0.9999); int8 frames/s beside the bf16
+   default route's; a profile of the resnet50 int8 forward split into
+   im2col copies, ``_int_mm``, quantize and dequant, and the top kernels
+   of the mae_base one; then
+   ``save_embedded_obs`` on phase 7's raw pickle with ``--sharded_embed``
+   (f32 on v1, 16 launches a forward, 1e-3 against phase 7's pickle) and
+   ``--quantize_embed`` (cosine > 0.99).
 
 The last three lines are the card's name and power limit, one JSON
 object with the kernels' numbers, and the verdict
@@ -145,6 +163,29 @@ ZOO = [("moco_aug_uber_345", "v1", {"fused_bottleneck": 45}),
        ("maskrcnn_l3", "off", {})]
 ZOO_CPU_FRAMES = 8             # frames of the f32 forward, card vs CPU
 FINETUNE_STEPS = 5             # conv-policy train steps, card vs CPU
+# Phase 9, int8 serving through the bulk embedder: (name, the int8 path's
+# card default route, kernel launches per forward on it, cosine gate
+# against the f32 off path: the JAX package's, tests/test_quantize.py).
+INT8 = [("resnet50", "off", {}, 0.99),
+        ("clip_rn50", "off", {}, 0.98),
+        ("maskrcnn_l3", "off", {}, 0.98),
+        ("mae_base", "attention", {"fused_attention": 12}, 0.98)]
+INT8_CPU_FRAMES = 8            # frames of the int8 forward, card vs CPU
+# the whole int8 MAE forward, card vs CPU (its blocks are held at 0.9999
+# one by one; phase 9 prints the same forward on the "off" route, no
+# kernel, card vs CPU, beside it)
+MAE_WHOLE_GATE = 0.999
+# launches per forward of the CLI's resnet50 runs: --sharded_embed runs
+# f32 on v1, --quantize_embed int8 with no kernel
+CLI_LAUNCHES = {"--sharded_embed": {"fused_bottleneck": 16},
+                "--quantize_embed": {}}
+# (M, K, N) of the int8 product: below cuBLAS's M > 16, K and N off a
+# multiple of 8 (the stems' K, the compress graft's N = 11); then at a
+# batch of 256 ResNet-50's stem, a layer1 3x3 and 1x1, layer4's 3x3 and
+# mae_base's qkv
+INT_MM_SHAPES = [(8, 147, 11), (17, 27, 32), (100, 99, 11),
+                 (3211264, 152, 64), (802816, 576, 64), (802816, 64, 256),
+                 (12544, 4608, 512), (50432, 768, 2304)]
 # The bf16 and f32 engines of fused_bottleneck.cu, FLAT = false (v1) and
 # true (v2).
 BF16_INSTANCES = {"bottleneck_mma_kernel<0>", "bottleneck_mma_kernel<1>"}
@@ -933,15 +974,15 @@ def bc_slice(torch, fb, fa, device, smi, workdir):
     return launches
 
 
-def load_net(EmbeddingNet, name, checkpoint_dir, **kwargs):
-    """``EmbeddingNet(name)`` through the pretrained path from
-    ``checkpoint_dir``; a missing file (which would warn and fall back to
-    the seeded init) fails."""
+def load_net(cls, name, checkpoint_dir, **kwargs):
+    """``cls(name)`` (``EmbeddingNet``, ``ShardedEmbedder``) with
+    ``checkpoint_dir``; a checkpoint asked for and missing (which would
+    warn and fall back to the seeded init) fails."""
     import warnings
 
     with warnings.catch_warnings():
         warnings.simplefilter("error")
-        return EmbeddingNet(name, checkpoint_dir=checkpoint_dir, **kwargs)
+        return cls(name, checkpoint_dir=checkpoint_dir, **kwargs)
 
 
 def zoo_slice(torch, fb, fa, frames, device, smi, workdir):
@@ -1155,6 +1196,247 @@ def finetune_slice(torch, fb, fa, device, smi, workdir):
     return {k: 0 for k in KERNELS}
 
 
+def check_int_mm(torch, qz, device, smi):
+    """``ops/quantize.matmul_int32`` on the card (``torch._int_mm`` with
+    its zero-padding and the weight passed transposed) against the int32
+    product on the CPU, exactly; at the serving shapes (M > 1000) its time
+    beside a bf16 product of the same shape."""
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    for m, k, n in INT_MM_SHAPES:
+        a_dev, w_dev = (torch.randint(-127, 128, shape, generator=gen,
+                                      device=device, dtype=torch.int8)
+                        for shape in ((m, k), (n, k)))
+        got = qz.matmul_int32(a_dev, w_dev)
+        rows = min(m, 2048)           # the CPU's int32 product is slow
+        want = a_dev[:rows].cpu().int() @ w_dev.cpu().int().t()
+        if got.dtype != torch.int32 or got.shape != (m, n) \
+                or not torch.equal(got[:rows].cpu(), want):
+            raise AssertionError(f"matmul_int32 {(m, k, n)} differs")
+        if m > 1000:
+            ab, wb = a_dev.bfloat16(), w_dev.bfloat16()
+            ms = time_ms(torch, lambda: qz.matmul_int32(a_dev, w_dev))
+            ms_bf16 = time_ms(torch, lambda: ab @ wb.t())
+            print(f"matmul_int32 {(m, k, n)}: {ms:.4f} ms "
+                  f"({2 * m * k * n / ms / 1e9:.0f} TOP/s), bf16 product "
+                  f"{ms_bf16:.4f} ms ({2 * m * k * n / ms_bf16 / 1e9:.0f} "
+                  f"TFLOP/s) [{smi}]", flush=True)
+    print(f"matmul_int32 (torch._int_mm, padded) equals the CPU's int32 "
+          f"product at (M, K, N) {INT_MM_SHAPES}", flush=True)
+
+
+def int8_profile(torch, fn, label):
+    """One call of ``fn`` under ``torch.profiler``: the device time of the
+    int8 path's parts, summed from each op's own kernels, and the idle
+    share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    groups = {"im2col, casts and padding copies": ("aten::copy_",
+                                                   "aten::fill_",
+                                                   "aten::zero_"),
+              "_int_mm": ("aten::_int_mm",),
+              "quantize (x*inv, round, clamp)": ("aten::mul", "aten::round_",
+                                                 "aten::clamp_"),
+              "dequant (addcmul)": ("aten::addcmul",)}
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - start) * 1e3
+    events = prof.key_averages()
+    busy_ms = sum(e.self_device_time_total for e in events
+                  if e.device_type == DeviceType.CUDA) / 1e3
+    if not busy_ms:
+        print(f"profile {label}: device time not measured", flush=True)
+        return
+    parts = {g: sum(e.self_device_time_total for e in events
+                    if e.device_type == DeviceType.CPU and e.key in ops) / 1e3
+             for g, ops in groups.items()}
+    rest = busy_ms - sum(parts.values())
+    print(f"profile {label}: wall {wall_ms:.3f} ms, device busy "
+          f"{busy_ms:.3f} ms, idle {max(0.0, 1 - busy_ms / wall_ms):.1%}; "
+          + "; ".join(f"{g} {ms:.3f} ms" for g, ms in parts.items())
+          + f"; the rest {rest:.3f} ms", flush=True)
+
+
+def int8_card_vs_cpu(torch, emb, frames, name):
+    """The int8 forward on the card against the CPU from the same bf16
+    inputs and calibrated scales, per-row cosine > 0.9999.  An MAE is held
+    block by block, each block fed the CPU's input of that block (per-token
+    cosine > 0.9999), and as a whole at > MAE_WHOLE_GATE: its attention
+    cores and LayerNorms sum in another order on the card (the kernel, or
+    its plain version there, differs from the CPU's plain version in about
+    one output in 10^4 by one bf16 ulp), and twelve blocks of int8
+    quantization spread such differences over the image."""
+    from pvr_habitat_tpu_torch.models import vit
+    from pvr_habitat_tpu_torch.ops import quantize as qz
+
+    device = frames.device
+    x = emb.handle.preprocess(frames, out_dtype=torch.bfloat16).cpu()
+    params_cpu = {k: v.cpu() for k, v in emb.params.items()}
+    blocks = []
+    block_q = vit._timm_block_q
+    if name in vit.MAE_CONFIGS:
+        def spy(qs, y, p, prefix, num_heads, fused="off"):
+            out = block_q(qs, y, p, prefix, num_heads, fused=fused)
+            blocks.append((prefix, num_heads, y, out))
+            return out
+        vit._timm_block_q = spy
+    try:
+        on_cpu, _ = emb._int8.apply(params_cpu, x, emb._scales,
+                                    fused=emb.fused)
+    finally:
+        vit._timm_block_q = block_q
+    on_card, _ = emb._int8.apply(emb.params, x.to(device), emb._scales,
+                                 fused=emb.fused)
+    cos = row_cosine(torch, on_card.cpu(), on_cpu)
+    err = (on_card.cpu().float() - on_cpu.float()).abs().max().item()
+    worst = 1.0
+    for prefix, num_heads, y, want in blocks:
+        got = block_q(qz.QuantState(emb._scales), y.to(device),
+                      emb.params, prefix, num_heads, fused=emb.fused)
+        d = want.shape[-1]
+        worst = min(worst, row_cosine(torch, got.cpu().reshape(-1, d),
+                                      want.reshape(-1, d)))
+    gate = MAE_WHOLE_GATE if blocks else 0.9999
+    if cos <= gate or worst <= 0.9999:
+        raise AssertionError(f"{name} int8 card vs CPU: cosine {cos}, "
+                             f"worst block {worst}")
+    plain = ""
+    if blocks:
+        # the reading behind MAE_WHOLE_GATE: the same forward on the
+        # "off" route (the int8 block's einsum core, no kernel), card vs
+        # CPU; reported, not gated
+        off_cpu, _ = emb._int8.apply(params_cpu, x, emb._scales, fused="off")
+        off_card, _ = emb._int8.apply(emb.params, x.to(device), emb._scales,
+                                      fused="off")
+        plain = (f"; route off (no kernel), card vs CPU: min cosine "
+                 f"{row_cosine(torch, off_card.cpu(), off_cpu):.7f}")
+    print(f"{name} int8, card vs CPU ({len(x)} frames, the same scales): "
+          f"min cosine {cos:.7f} (gate {gate}), max_abs_err {err:.3g}"
+          + (f"; {len(blocks)} blocks each from the CPU's input: min "
+             f"per-token cosine {worst:.7f} (gate 0.9999)" if blocks else "")
+          + plain, flush=True)
+
+
+def int8_slice(torch, fb, fa, frames, refs, device, smi, workdir):
+    """Phase 9: each encoder of ``INT8`` through
+    ``ShardedEmbedder(quantize=True)``: its int8 forward on the card
+    against the CPU on the same inputs and scales, ``embed_all`` over the
+    frames at batch 256 (launches counted, calibration included) against
+    the f32 off path, int8 frames/s beside the bf16 default route's, and a
+    profile of the resnet50 int8 forward; then the CLI with
+    ``--sharded_embed`` and ``--quantize_embed`` on phase 7's raw pickle
+    against its embedded pickle.  Returns the launches."""
+    import math
+    import os
+    import shutil
+
+    from pvr_habitat_tpu_torch.data import formats
+    from pvr_habitat_tpu_torch.data.embed_pipeline import ShardedEmbedder
+    from pvr_habitat_tpu_torch.models.embedding_net import EmbeddingNet
+    from pvr_habitat_tpu_torch.ops import quantize as qz
+    from pvr_habitat_tpu_torch.tools import save_embedded_obs
+
+    check_int_mm(torch, qz, device, smi)
+    ckpt_dir = os.path.join(workdir, "zoo")
+    launches = {k: 0 for k in KERNELS}
+    dev_frames = torch.from_numpy(frames[:BULK_BATCH]).to(device)
+    for name, route, per_forward, gate in INT8:
+        start = time.perf_counter()
+        # resnet50 and mae_base: the seeded init of phases 4 and 5;
+        # clip_rn50 and maskrcnn_l3: phase 8's checkpoints
+        seeded = name in refs
+        kwargs = dict(pretrained=not seeded, batch_size=BULK_BATCH)
+        ckpt = None if seeded else ckpt_dir
+        ref = refs.get(name)
+        if ref is None:
+            ref = f32_reference(torch, load_net(
+                EmbeddingNet, name, ckpt_dir, fused="off"), frames)
+        emb = load_net(ShardedEmbedder, name, ckpt, quantize=True, **kwargs)
+        if emb.fused != route:
+            raise AssertionError(f"{name} int8 route {emb.fused}")
+        reset_launches(fb, fa)
+        got = emb.embed_all(frames)
+        counts = count_launches(fb, fa)
+        forwards = math.ceil(len(frames) / BULK_BATCH) + 1   # + calibration
+        want = {k: per_forward.get(k, 0) * forwards for k in KERNELS}
+        if counts != want:
+            raise AssertionError(f"{name} int8: launches {counts} != {want}")
+        for k in KERNELS:
+            launches[k] += counts[k]
+        if got.shape != (len(frames), emb.out_size) \
+                or not np.isfinite(got).all():
+            raise AssertionError(f"{name} int8: {got.shape}")
+        cos = row_cosine(torch, torch.from_numpy(got), ref)
+        if cos <= gate:
+            raise AssertionError(f"{name} int8: cosine vs f32 off {cos}")
+        print(f"{name} int8 embed_all ({len(frames)} frames, batch "
+              f"{BULK_BATCH}, route {route}): launches {counts} over "
+              f"{forwards} forwards (one calibrates); min cosine vs f32 off "
+              f"{cos:.6f} (gate {gate})", flush=True)
+
+        int8_card_vs_cpu(torch, emb, dev_frames[:INT8_CPU_FRAMES], name)
+
+        # frames/s: int8 beside the bf16 default route, both with their
+        # params prepared once
+        bf16 = load_net(ShardedEmbedder, name, ckpt, **kwargs)
+        for label, e in (("int8", emb), (f"bf16 {bf16.fused}", bf16)):
+            ms = time_ms(torch, lambda: e._forward(dev_frames), reps=5,
+                         warmup=1)
+            print(f"e2e {name} {label}: {BULK_BATCH / ms * 1e3:.1f} frames/s "
+                  f"({ms:.3f} ms per batch of {BULK_BATCH}, frames on "
+                  f"device) [{smi}]", flush=True)
+        if name == "resnet50":
+            int8_profile(torch, lambda: emb._forward(dev_frames),
+                         "resnet50 int8")
+        elif route != "off":
+            profile_call(torch, lambda: emb._forward(dev_frames),
+                         f"{name} int8 {route}", top=10)
+        del emb, bf16
+        torch.cuda.empty_cache()
+        print(f"{name} int8: {time.perf_counter() - start:.1f} s", flush=True)
+
+    # the CLI on phase 7's raw pickle (resnet50, f32 on v1 / int8)
+    want = formats.load_pickle(
+        formats.embedded_path(workdir, BC_ENV, "resnet50"))["obs"]
+    for option, per_forward in CLI_LAUNCHES.items():
+        path = os.path.join(workdir, option.strip("-"))
+        os.makedirs(path)
+        shutil.copy(formats.raw_path(workdir, BC_ENV),
+                    formats.raw_path(path, BC_ENV))
+        flags = save_embedded_obs.build_tool_parser().parse_args(
+            ["--env", BC_ENV, "--data_path", path, "--embedding_name",
+             "resnet50", "--source", "pickle", "--embed_batch_size",
+             str(BULK_BATCH), "--disable_pretrained_embedding", option])
+        reset_launches(fb, fa)
+        start = time.perf_counter()
+        got = formats.load_pickle(quiet(save_embedded_obs.run, flags))["obs"]
+        seconds = time.perf_counter() - start
+        counts = count_launches(fb, fa)
+        forwards = math.ceil(len(want) / BULK_BATCH)
+        if counts != {k: per_forward.get(k, 0) * forwards for k in KERNELS}:
+            raise AssertionError(f"CLI {option}: launches {counts}")
+        for k in KERNELS:
+            launches[k] += counts[k]
+        if got.shape != want.shape:
+            raise AssertionError(f"CLI {option}: {got.shape}")
+        cos = row_cosine(torch, torch.from_numpy(np.asarray(got)),
+                         torch.from_numpy(np.asarray(want)))
+        if option == "--sharded_embed":
+            np.testing.assert_allclose(got, want, atol=1e-3, rtol=1e-3)
+        elif cos <= 0.99:
+            raise AssertionError(f"CLI {option}: cosine {cos}")
+        print(f"save_embedded_obs {option} (resnet50, batch {BULK_BATCH}): "
+              f"{len(got)} samples in {seconds:.1f} s (tool wall time, "
+              f"encoder builds included), launches {counts}, min cosine "
+              f"vs phase 7's pickle {cos:.6f} [{smi}]", flush=True)
+    return launches
+
+
 def main():
     import torch
 
@@ -1298,7 +1580,15 @@ def main():
             counts = part()
             for k in KERNELS:
                 launches[k] += counts[k]
-    print(f"slice phase {time.perf_counter() - t0:.1f} s")
+        print(f"slice phase {time.perf_counter() - t0:.1f} s")
+
+        t0 = phase("9 slice: int8 serving and the bulk embedder")
+        counts = int8_slice(torch, fb, fa, frames,
+                            {"resnet50": ref, "mae_base": mae_ref}, device,
+                            smi, workdir.name)
+        for k in KERNELS:
+            launches[k] += counts[k]
+        print(f"slice phase {time.perf_counter() - t0:.1f} s")
 
     line = {"kernels": [{
         "name": k, "route": "cuda", "source": KERNELS[k][1],

@@ -16,8 +16,9 @@ the (width, output_dim) matrix applied as ``y @ proj``, not a Linear):
   head (mean token as query, f32 softmax) to 1024.
 
 Both run on ``F.conv2d`` and ``torch.matmul`` only (routes ``("off",)``),
-as the JAX package leaves them to XLA.  The int8 RN50 path is not ported
-yet (ROADMAP.md queue 1, item 6).
+as the JAX package leaves them to XLA.  ``clip_rn50_apply_int8`` is the
+RN50 tower's W8A8 serving path (``ops/quantize.py``): convs int8, the
+attention pool in the input dtype (one query, so no kernel).
 """
 
 import math
@@ -28,6 +29,7 @@ import torch
 from pvr_habitat_tpu_torch.models import common as cm
 from pvr_habitat_tpu_torch.models.vit import multihead_attention
 from pvr_habitat_tpu_torch.ops import image as im
+from pvr_habitat_tpu_torch.ops import quantize as q
 from pvr_habitat_tpu_torch.utils.platform import resolve_device
 
 
@@ -192,6 +194,44 @@ def clip_rn50_apply(params, x, train=False, cfg=RN50):
                 y, params, f"visual.layer{stage_idx + 1}.{i}",
                 stride if i == 0 else 1, train)
     return _attention_pool(y, params, cfg["heads"])
+
+
+def _modified_bottleneck_q(qs, x, p, prefix, stride):
+    y = q.conv_q(qs, f"{prefix}.conv1", x, p, 1, 0,
+                 bias=q.affine_from_folded_bn(p, f"{prefix}.bn1")).relu_()
+    y = q.conv_q(qs, f"{prefix}.conv2", y, p, 1, 1,
+                 bias=q.affine_from_folded_bn(p, f"{prefix}.bn2")).relu_()
+    if stride > 1:
+        y = cm.avg_pool(y, stride)
+    y = q.conv_q(qs, f"{prefix}.conv3", y, p, 1, 0,
+                 bias=q.affine_from_folded_bn(p, f"{prefix}.bn3"))
+    identity = x
+    if f"{prefix}.downsample.1.weight" in p:
+        identity = cm.avg_pool(identity, stride) if stride > 1 else identity
+        identity = q.conv_q(
+            qs, f"{prefix}.downsample.0", identity, p, 1, 0,
+            bias=q.affine_from_folded_bn(p, f"{prefix}.downsample.1"))
+    return torch.relu(y + identity)
+
+
+def clip_rn50_apply_int8(params_q, x, scales=None, cfg=RN50):
+    """W8A8 ModifiedResNet (convs int8; the attention pool in x's dtype).
+    ``params_q``: ``quantize_resnet_params(fold_resnet_bn(params))``;
+    ``scales=None`` calibrates on this batch.  Returns (out, scales)."""
+    qs = q.QuantState(scales)
+    y = x
+    for i, stride in ((1, 2), (2, 1), (3, 1)):
+        y = q.conv_q(qs, f"visual.conv{i}", y, params_q, stride, 1,
+                     bias=q.affine_from_folded_bn(params_q,
+                                                  f"visual.bn{i}")).relu_()
+    y = cm.avg_pool(y, 2)
+    for stage_idx, blocks in enumerate(cfg["layers"]):
+        stride = 1 if stage_idx == 0 else 2
+        for i in range(blocks):
+            y = _modified_bottleneck_q(
+                qs, y, params_q, f"visual.layer{stage_idx + 1}.{i}",
+                stride if i == 0 else 1)
+    return _attention_pool(y, params_q, cfg["heads"]), qs.scales
 
 
 def _init_clip_rn50_numpy(rng, cfg):

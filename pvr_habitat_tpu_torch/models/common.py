@@ -65,10 +65,17 @@ def max_pool(x, window=3, stride=2, padding=1):
 
 
 def avg_pool(x, k):
-    """NHWC k x k average pool at stride k, VALID (CLIP's ``AvgPool2d(k)``;
-    the JAX package sums with ``reduce_window`` and divides by k*k)."""
-    y = F.avg_pool2d(x.permute(0, 3, 1, 2), k, k)
-    return y.permute(0, 2, 3, 1)
+    """NHWC k x k average pool at stride k, VALID (CLIP's ``AvgPool2d(k)``).
+    The window is summed in x's dtype in row-major order and then divided
+    by k*k, as the JAX package's ``reduce_window`` sums it: in bf16 each
+    add rounds (``F.avg_pool2d`` would sum in f32)."""
+    h, w = x.shape[1] // k * k, x.shape[2] // k * k
+    total = x[:, 0:h:k, 0:w:k]
+    for i in range(k):
+        for j in range(k):
+            if i or j:
+                total = total + x[:, i:h:k, j:w:k]
+    return total / (k * k)
 
 
 def sub(params, prefix):
@@ -90,12 +97,15 @@ def layer_norm(x, p, prefix, eps=1e-6):
     """LayerNorm over the last axis with the JAX package's rounding points:
     the mean and the biased variance accumulate in f32 and are rounded to
     x's dtype, then ``(x - mean) * rsqrt(var + eps)`` runs in x's dtype
-    with eps rounded to it (``F.layer_norm`` would stay in f32)."""
+    with eps rounded to it (``F.layer_norm`` would stay in f32).  The rsqrt
+    is taken in f32 and rounded once, as XLA takes it (torch's bf16 rsqrt
+    on the CPU rounds the sqrt first)."""
     dt = x.dtype
     xf = x.float()
     mean = xf.mean(dim=-1, keepdim=True).to(dt)
     var = xf.var(dim=-1, unbiased=False, keepdim=True).to(dt)
-    y = (x - mean) * torch.rsqrt(var + torch.tensor(eps, dtype=dt))
+    inv = torch.rsqrt((var + torch.tensor(eps, dtype=dt)).float()).to(dt)
+    y = (x - mean) * inv
     return y * p[f"{prefix}.weight"].to(dt) + p[f"{prefix}.bias"].to(dt)
 
 
@@ -104,6 +114,23 @@ def gelu(x):
     approximation in bf16, as in the JAX package."""
     return F.gelu(x, approximate="tanh" if x.dtype == torch.bfloat16
                   else "none")
+
+
+def gelu_tanh_stepwise(x):
+    """``jax.nn.gelu(x, approximate=True)`` op by op, as XLA runs it on the
+    CPU: every step of ``x * 0.5 * (1 + tanh(c1 * (x + c2 * x**3)))``
+    rounds to x's dtype, with c1 = sqrt(2/pi) and c2 = 0.044715 rounded
+    to it too.  In bf16 that differs from ``F.gelu``'s single rounding in
+    about 45% of the elements; the int8 ViT block, whose next layer
+    quantizes the result, takes this form.  Eight elementwise passes."""
+    dt = x.dtype
+    c1 = torch.tensor(math.sqrt(2.0 / math.pi), dtype=dt)
+    c2 = torch.tensor(0.044715, dtype=dt)
+    t = x * x
+    t.mul_(x).mul_(c2).add_(x).mul_(c1).tanh_().add_(1.0)
+    # 0.5 * (1 + tanh) rounds exactly as (1 + tanh) did, so the halving
+    # folds into the last product: x * t * 0.5, one rounding
+    return torch.addcmul(x.new_zeros(()), x, t, value=0.5)
 
 
 # -----------------------------------------------------------------------------

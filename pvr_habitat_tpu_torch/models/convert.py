@@ -21,22 +21,32 @@ FLAT_FORMAT = "pvr_habitat_tpu/flat-v1"
 
 def params_from_numpy(flat, device, dtype=torch.float32):
     """JAX-layout flat dict (HWIO numpy) -> torch tensors (OIHW) on
-    ``device``."""
+    ``device``: floats in ``dtype``, except the int8 path's f32
+    '<name>.wscale' scales; integer arrays (int8 weights) keep their
+    dtype."""
     out = {}
     for key, value in flat.items():
         arr = np.asarray(value)
         if arr.ndim == 4:
             arr = np.transpose(arr, (3, 2, 0, 1))  # HWIO -> OIHW
-        out[key] = torch.tensor(np.ascontiguousarray(arr), dtype=dtype,
+        if np.issubdtype(arr.dtype, np.integer):
+            dt = None
+        else:
+            dt = torch.float32 if key.endswith(".wscale") else dtype
+        out[key] = torch.tensor(np.ascontiguousarray(arr), dtype=dt,
                                 device=device)
     return out
 
 
 def params_to_numpy(params):
-    """torch tensors (OIHW) -> JAX-layout flat dict (HWIO float32 numpy)."""
+    """torch tensors (OIHW) -> JAX-layout flat dict (HWIO numpy): floats
+    as float32, integer tensors in their dtype."""
     out = {}
     for key, value in params.items():
-        arr = value.detach().to("cpu", torch.float32).numpy()
+        value = value.detach().cpu()
+        if value.is_floating_point():
+            value = value.float()
+        arr = value.numpy()
         if arr.ndim == 4:
             arr = np.transpose(arr, (2, 3, 1, 0))  # OIHW -> HWIO
         out[key] = np.ascontiguousarray(arr)

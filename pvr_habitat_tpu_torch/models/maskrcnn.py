@@ -8,8 +8,9 @@ output is the 11-channel res4 map flattened in NCHW order, 11*14*14 =
 detectron2 specifics: FrozenBN (eval-mode BN), the stride on the 1x1
 conv1 (``stride_in_1x1``; torchvision puts it on the 3x3), norm params
 stored as ``<conv>.norm.*``, the shortcut named ``shortcut[.norm]``.
-Everything runs on ``F.conv2d`` (routes ``("off",)``).  The int8 path is
-not ported yet (ROADMAP.md queue 1, item 6).
+Everything runs on ``F.conv2d`` (routes ``("off",)``).  ``apply_int8`` is
+the W8A8 serving path (``ops/quantize.py``); the FrozenBN ``<conv>.norm``
+pairs fold like any eval-mode BN.
 """
 
 import numpy as np
@@ -17,6 +18,7 @@ import torch
 
 from pvr_habitat_tpu_torch.models import common as cm
 from pvr_habitat_tpu_torch.ops import image as im
+from pvr_habitat_tpu_torch.ops import quantize as q
 from pvr_habitat_tpu_torch.utils.platform import resolve_device
 
 # stage: (blocks, planes, out channels, stride of the first block)
@@ -68,6 +70,45 @@ def apply(params, x, train=False):
     # res4.6: the 1024 -> 11 compression BasicBlock; res4.7 was emptied.
     y = _basic(y, params, "res4.6", 1)
     return cm.flatten_nchw(y)
+
+
+def _conv_q(qs, x, p, name, stride, padding):
+    return q.conv_q(qs, name, x, p, stride, padding,
+                    bias=q.affine_from_folded_bn(p, f"{name}.norm"))
+
+
+def _shortcut_q(qs, x, p, prefix, stride):
+    if f"{prefix}.shortcut.weight" not in p:
+        return x
+    return _conv_q(qs, x, p, f"{prefix}.shortcut", stride, 0)
+
+
+def _bottleneck_q(qs, x, p, prefix, stride):
+    y = _conv_q(qs, x, p, f"{prefix}.conv1", stride, 0).relu_()
+    y = _conv_q(qs, y, p, f"{prefix}.conv2", 1, 1).relu_()
+    y = _conv_q(qs, y, p, f"{prefix}.conv3", 1, 0)
+    return torch.relu(y + _shortcut_q(qs, x, p, prefix, stride))
+
+
+def _basic_q(qs, x, p, prefix, stride):
+    y = _conv_q(qs, x, p, f"{prefix}.conv1", stride, 1).relu_()
+    y = _conv_q(qs, y, p, f"{prefix}.conv2", 1, 1)
+    return torch.relu(y + _shortcut_q(qs, x, p, prefix, stride))
+
+
+def apply_int8(params_q, x, scales=None):
+    """W8A8 serving path.  ``params_q``:
+    ``quantize_resnet_params(fold_resnet_bn(params))``; ``scales=None``
+    calibrates on this batch.  Returns (out (N, 2156), scales)."""
+    qs = q.QuantState(scales)
+    y = _conv_q(qs, x, params_q, "stem.conv1", 2, 3).relu_()
+    y = cm.max_pool(y, 3, 2, 1).contiguous()
+    for stage, (blocks, _, _, stride) in STAGES.items():
+        for i in range(blocks):
+            y = _bottleneck_q(qs, y, params_q, f"{stage}.{i}",
+                              stride if i == 0 else 1)
+    y = _basic_q(qs, y, params_q, "res4.6", 1)
+    return cm.flatten_nchw(y), qs.scales
 
 
 def _init_numpy(rng):

@@ -9,7 +9,8 @@ checkpoints keep the reference's filenames and key surgery; a torch
 checkpoint's state dict already is the port's flat dict (OIHW).  When a
 file is absent the encoder falls back to a deterministic, name-seeded
 random init with the JAX package's numpy stream, so both packages build
-the same weights for the same name.
+the same weights for the same name.  ``int8_serving_fns`` gives the W8A8
+serving functions of the encoders that have them.
 """
 
 import hashlib
@@ -18,7 +19,7 @@ import pickle
 import warnings
 import zipfile
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -28,6 +29,7 @@ from pvr_habitat_tpu_torch.models import (clip, convert, maskrcnn,
                                           random_conv, resnet, vit)
 from pvr_habitat_tpu_torch.models.convert import FLAT_FORMAT
 from pvr_habitat_tpu_torch.ops import image as im
+from pvr_habitat_tpu_torch.ops import quantize as q
 from pvr_habitat_tpu_torch.utils.platform import resolve_device
 
 
@@ -191,6 +193,57 @@ def _resnet_family(name):
     if name.startswith("moco_"):
         return resnet.ResNetSpec(50), convert.moco_encoder_q
     return None
+
+
+class Int8Serving(NamedTuple):
+    """The W8A8 serving functions of one encoder (``int8_serving_fns``)."""
+    quantize_params: Callable    # folded params -> quantized params
+    apply: Callable    # (params_q, x, scales, fused) -> (out, scales)
+    # The ``fused`` values apply takes; as for EncoderHandle, the first
+    # kernel route after "off" is the card's default.
+    fused_routes: tuple = ("off",)
+
+
+def _convnet_int8(apply_int8):
+    def apply(p, x, scales, fused="off"):
+        if fused != "off":
+            raise ValueError(f"fused={fused!r}: the int8 convnets run no "
+                             f"kernel")
+        return apply_int8(p, x, scales)
+    return Int8Serving(q.quantize_resnet_params, apply)
+
+
+def int8_serving_fns(name):
+    """name -> ``Int8Serving`` for the W8A8 serving zoo (counterpart of the
+    JAX ``registry.int8_serving_fns``, in its dispatch order): every ResNet
+    family (bottleneck and basic-block, the l3/l4 grafts), clip_rn50,
+    maskrcnn_l3 and the MAE ViTs.  ``apply(params_q, x, scales)`` returns
+    (out, scales); ``scales=None`` calibrates on that batch.
+
+    The uber fusions raise up front: the JAX package's ``_resnet_family``
+    matches them as a plain ResNet-50, whose int8 apply then fails at its
+    first weight lookup."""
+    if "_uber_" in name:
+        raise NotImplementedError(
+            f"no int8 serving path for the uber fusion '{name}'")
+    family = _resnet_family(name)
+    if family is not None:
+        spec = family[0]
+        return _convnet_int8(
+            lambda p, x, scales: resnet.apply_int8(p, x, spec, scales))
+    if name == "clip_rn50":
+        return _convnet_int8(clip.clip_rn50_apply_int8)
+    if name == "maskrcnn_l3":
+        return _convnet_int8(maskrcnn.apply_int8)
+    if name in vit.MAE_CONFIGS:
+        _, depth, num_heads, patch = vit.MAE_CONFIGS[name]
+
+        def apply(p, x, scales, fused="off"):
+            return vit.mae_apply_int8(p, x, depth=depth, num_heads=num_heads,
+                                      patch=patch, scales=scales,
+                                      fused=fused)
+        return Int8Serving(q.quantize_vit_params, apply, vit.FUSED_ROUTES)
+    raise NotImplementedError(f"no int8 serving path for '{name}'")
 
 
 def _build_uber(name, subs):

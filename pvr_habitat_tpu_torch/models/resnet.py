@@ -17,13 +17,15 @@ blocks live under ``layer3.0.<i>...`` and the compress block under
 bottleneck blocks through the Hopper kernels of
 ``ops/cuda/fused_bottleneck.py``; the stem conv, max pool, basic blocks
 and compress grafts run on ``F.conv2d``/``F.max_pool2d``, the same work
-the JAX package leaves to XLA outside its Pallas kernels.
+the JAX package leaves to XLA outside its Pallas kernels.  ``apply_int8``
+is the W8A8 serving path (``ops/quantize.py``).
 """
 
 import numpy as np
 import torch
 
 from pvr_habitat_tpu_torch.models import common as cm
+from pvr_habitat_tpu_torch.ops import quantize as q
 from pvr_habitat_tpu_torch.ops.cuda import fused_bottleneck as fb
 from pvr_habitat_tpu_torch.utils.platform import resolve_device
 
@@ -215,6 +217,69 @@ def fused_routes(spec):
     if spec.cut is not None:
         return ("off", "v1")
     return ("off", "v1", "v2", "hybrid")
+
+
+# -----------------------------------------------------------------------------
+# W8A8 int8 serving path (ops/quantize.py): every conv int8, the max pool,
+# residual adds and the mean in the input dtype (bf16 when serving).
+# -----------------------------------------------------------------------------
+
+
+def _bottleneck_block_q(qs, x, p, prefix, stride):
+    y = q.conv_q(qs, f"{prefix}.conv1", x, p, 1, 0,
+                 bias=q.affine_from_folded_bn(p, f"{prefix}.bn1")).relu_()
+    y = q.conv_q(qs, f"{prefix}.conv2", y, p, stride, 1,
+                 bias=q.affine_from_folded_bn(p, f"{prefix}.bn2")).relu_()
+    y = q.conv_q(qs, f"{prefix}.conv3", y, p, 1, 0,
+                 bias=q.affine_from_folded_bn(p, f"{prefix}.bn3"))
+    identity = x
+    if f"{prefix}.downsample.0.weight" in p:
+        identity = q.conv_q(
+            qs, f"{prefix}.downsample.0", x, p, stride, 0,
+            bias=q.affine_from_folded_bn(p, f"{prefix}.downsample.1"))
+    return torch.relu(y + identity)
+
+
+def _basic_block_q(qs, x, p, prefix, stride):
+    y = q.conv_q(qs, f"{prefix}.conv1", x, p, stride, 1,
+                 bias=q.affine_from_folded_bn(p, f"{prefix}.bn1")).relu_()
+    y = q.conv_q(qs, f"{prefix}.conv2", y, p, 1, 1,
+                 bias=q.affine_from_folded_bn(p, f"{prefix}.bn2"))
+    identity = x
+    if f"{prefix}.downsample.0.weight" in p:
+        # 1x1 in stages, 3x3 in the compress grafts (their conv bias is
+        # folded into downsample.1's shift)
+        pad = (p[f"{prefix}.downsample.0.weight"].shape[-1] - 1) // 2
+        identity = q.conv_q(
+            qs, f"{prefix}.downsample.0", x, p, stride, pad,
+            bias=q.affine_from_folded_bn(p, f"{prefix}.downsample.1"))
+    return torch.relu(y + identity)
+
+
+def apply_int8(params_q, x, spec, scales=None):
+    """W8A8 inference path (opt-in; not the parity path).
+
+    params_q: ``quantize_resnet_params(fold_resnet_bn(params))``.
+    scales: calibrated activation scales; None calibrates on this batch.
+    Returns (out (N, out_size) in x's dtype, scales dict)."""
+    qs = q.QuantState(scales)
+    y = q.conv_q(qs, "conv1", x, params_q, 2, 3,
+                 bias=q.affine_from_folded_bn(params_q, "bn1")).relu_()
+    y = cm.max_pool(y, window=3, stride=2, padding=1).contiguous()
+    block_q = (_bottleneck_block_q if spec.block == "bottleneck"
+               else _basic_block_q)
+    for stage_idx in range(4 if spec.cut != "l3" else 3):
+        name = f"layer{stage_idx + 1}"
+        grafted = _grafted(spec, stage_idx)
+        base = f"{name}.0" if grafted else name
+        for i in range(spec.layers[stage_idx]):
+            stride = 2 if (i == 0 and stage_idx > 0) else 1
+            y = block_q(qs, y, params_q, f"{base}.{i}", stride)
+        if grafted:
+            y = _basic_block_q(qs, y, params_q, f"{name}.1", 1)
+    if spec.cut in ("l3", "l4"):
+        return cm.flatten_nchw(y), qs.scales
+    return y.mean(dim=(1, 2)), qs.scales
 
 
 # -----------------------------------------------------------------------------

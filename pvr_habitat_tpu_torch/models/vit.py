@@ -13,7 +13,14 @@ core that meets ``ops/cuda/attention.kernel_applies`` (bf16, L >= 128)
 through the Hopper kernel with unscaled q, since the kernel scales
 internally, and leaves every other core on ``off``.  The projections
 and the MLP are plain products outside any kernel, as in the JAX
-package, and stay ``torch.matmul``.  The int8 blocks are not ported yet.
+package, and stay ``torch.matmul``.
+
+``mae_apply_int8`` is the W8A8 serving path (``ops/quantize.py``): the
+patch embedding and every block linear int8, LayerNorm and the attention
+core in the input dtype.  Its core takes the same ``fused`` rule with
+unscaled q; off the kernel it is the int8 block's own core (q times
+1/sqrt(head) rounded to q's dtype, an f32 softmax), not
+``multihead_attention``'s.
 """
 
 import math
@@ -23,6 +30,7 @@ import torch
 
 from pvr_habitat_tpu_torch.models import common as cm
 from pvr_habitat_tpu_torch.ops import image as im
+from pvr_habitat_tpu_torch.ops import quantize as qz
 from pvr_habitat_tpu_torch.ops.cuda import attention as attn
 from pvr_habitat_tpu_torch.utils.platform import resolve_device
 
@@ -144,6 +152,60 @@ def mae_apply(params, x, *, depth, num_heads, patch, train=False,
         y = timm_block(y, params, f"blocks.{i}", num_heads, fused=fused)
     y = cm.layer_norm(y, params, "norm", eps=1e-6)
     return y[:, 0, :]
+
+
+def int8_block_core(q, k, v):
+    """The int8 block's attention core off the kernel (JAX
+    vit.py:188-192), (N, H, L, D) -> (N, H, L, D): q times 1/sqrt(D)
+    rounded to q's dtype, logits in q's dtype, an f32 softmax rounded to
+    q's dtype."""
+    scale = torch.tensor(1.0 / math.sqrt(q.shape[-1]), dtype=q.dtype)
+    logits = (q * scale) @ k.transpose(-1, -2)
+    probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+    return probs @ v
+
+
+def _timm_block_q(qs, x, p, prefix, num_heads, fused="off"):
+    """int8 ViT block: the linears W8A8; LayerNorm, the attention core and
+    GELU (op by op, as the JAX package computes it) in x's dtype."""
+    n, l, d = x.shape
+    head = d // num_heads
+    y = cm.layer_norm(x, p, f"{prefix}.norm1", eps=1e-6)
+    qkv = qz.linear_q(qs, f"{prefix}.attn.qkv", y.reshape(n * l, d), p)
+    qkv = qkv.view(n, l, 3, num_heads, head)
+    q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))  # (N, H, L, head)
+    if fused == "attention" and attn.kernel_applies(q.dtype, l):
+        out = attn.fused_attention(q, k, v)     # unscaled q
+    else:
+        out = int8_block_core(q, k, v)
+    out = out.transpose(1, 2).reshape(n * l, d)
+    x = x + qz.linear_q(qs, f"{prefix}.attn.proj", out, p).view(n, l, d)
+    y = cm.layer_norm(x, p, f"{prefix}.norm2", eps=1e-6)
+    y = cm.gelu_tanh_stepwise(qz.linear_q(qs, f"{prefix}.mlp.fc1",
+                                          y.reshape(n * l, d), p))
+    y = qz.linear_q(qs, f"{prefix}.mlp.fc2", y, p)
+    return x + y.view(n, l, d)
+
+
+def mae_apply_int8(params_q, x, *, depth, num_heads, patch, scales=None,
+                   fused="off"):
+    """W8A8 MAE encoder.  ``params_q``: ``quantize_vit_params(params)``;
+    ``scales=None`` calibrates on this batch.  Returns (cls, scales)."""
+    qs = qz.QuantState(scales)
+    n = x.shape[0]
+    y = qz.conv_q(qs, "patch_embed.proj", x, params_q, patch, 0,
+                  bias=params_q["patch_embed.proj.bias"].float())
+    gh, gw, d = y.shape[1], y.shape[2], y.shape[3]
+    y = y.reshape(n, gh * gw, d)
+    pos = params_q["pos_embed"].to(y.dtype)
+    y = y + pos[:, 1:, :]
+    cls = params_q["cls_token"].to(y.dtype) + pos[:, :1, :]
+    y = torch.cat([cls.expand(n, 1, d), y], dim=1)
+    for i in range(depth):
+        y = _timm_block_q(qs, y, params_q, f"blocks.{i}", num_heads,
+                          fused=fused)
+    y = cm.layer_norm(y, params_q, "norm", eps=1e-6)
+    return y[:, 0, :], qs.scales
 
 
 def mae_param_names(name):

@@ -11,8 +11,16 @@ Idempotent: returns immediately when the output pickle exists.  Also
 persists the encoder weights as '{data_path}/{embedding}[_runid].tar'
 (the reference's contract, save_embedded_obs.py:126-131).  Frames come
 from the raw trajectory pickle (``--source pickle``) and stream through
-``EmbeddingNet.embed_batches``.  The PNG source, the sharded pipeline and
-int8 serving are not ported yet and raise.
+``EmbeddingNet.embed_batches``, or with ``--sharded_embed`` through
+``data/embed_pipeline.py::ShardedEmbedder`` on one card;
+``--quantize_embed`` serves the encoder in W8A8 int8 there:
+
+    python -m pvr_habitat_tpu_torch.tools.save_embedded_obs \\
+        --env FakePointNav-apartment_0 --embedding_name resnet50 \\
+        --source pickle --data_path DIR --quantize_embed
+
+The PNG source and a ``--mesh_shape`` of more than one device are not
+ported yet and raise.
 """
 
 import os
@@ -21,6 +29,7 @@ import random
 import numpy as np
 
 from pvr_habitat_tpu_torch.data import formats
+from pvr_habitat_tpu_torch.data.embed_pipeline import ShardedEmbedder
 from pvr_habitat_tpu_torch.models.embedding_net import EmbeddingNet
 from pvr_habitat_tpu_torch.train.bc import (check_single_device,
                                             compute_dtype,
@@ -28,17 +37,11 @@ from pvr_habitat_tpu_torch.train.bc import (check_single_device,
                                             flags_device)
 from pvr_habitat_tpu_torch.utils.flags import build_parser
 
-NOT_PORTED = (
-    ("source", "png", "--source png (ROADMAP.md queue 1, items 3 and 4)"),
-    ("sharded_embed", True, "--sharded_embed (ROADMAP.md queue 1, item 4)"),
-    ("quantize_embed", True, "--quantize_embed (ROADMAP.md queue 1, item 6)"),
-)
-
 
 def run(flags):
-    for flag, value, what in NOT_PORTED:
-        if getattr(flags, flag, None) == value:
-            raise NotImplementedError(f"{what} is not ported yet")
+    if flags.source == "png":
+        raise NotImplementedError(
+            "--source png is not ported yet (ROADMAP.md queue 1, item 3)")
     check_single_device(flags)
     save_name = formats.embedded_path(flags.data_path, flags.env,
                                       flags.embedding_name)
@@ -68,7 +71,10 @@ def run(flags):
         n_trajectories=flags.n_trajectories)
     print("   passing observations through embedding model")
     batch = flags.embed_batch_size or flags.batch_size
-    obs = embed_in_minibatches(embedding_model, data["obs"], batch)
+    if flags.sharded_embed or flags.quantize_embed:
+        obs = _embed_sharded(flags, device, data["obs"], batch)
+    else:
+        obs = embed_in_minibatches(embedding_model, data["obs"], batch)
     n = obs.shape[0]
     assert n > 0, "no data found"
     print("   total number of samples", n)
@@ -79,16 +85,33 @@ def run(flags):
     return save_name
 
 
+def _embed_sharded(flags, device, frames, batch_size):
+    """The ``ShardedEmbedder`` path (``--sharded_embed``,
+    ``--quantize_embed``) on one card."""
+    embedder = ShardedEmbedder(
+        flags.embedding_name, device=device, batch_size=batch_size,
+        compute_dtype=compute_dtype(flags),
+        pretrained=flags.pretrained_embedding,
+        checkpoint_dir=flags.data_path, run_id=flags.run_id,
+        quantize=flags.quantize_embed)
+    return embedder.embed_all(np.asarray(frames))
+
+
 def build_tool_parser():
     parser = build_parser()
     parser.add_argument("--n_trajectories", type=int, default=-1)
     parser.add_argument("--source", type=str, default="png",
                         choices=["png", "pickle"])
     parser.add_argument("--sharded_embed", action="store_true",
-                        help="Embed via the mesh-sharded pipeline "
-                             "(not ported yet).")
+                        help="Embed via the bulk pipeline "
+                             "(data/embed_pipeline.py) on one card; a "
+                             "mesh of several devices is not ported yet.")
     parser.add_argument("--quantize_embed", action="store_true",
-                        help="W8A8 int8 serving (not ported yet).")
+                        help="W8A8 int8 serving for the ResNet families, "
+                             "clip_rn50, maskrcnn_l3 and the MAE ViTs "
+                             "(cosine-gated against f32 in "
+                             "tests/test_torch_quantize.py). Implies the "
+                             "bulk pipeline.")
     return parser
 
 

@@ -10,7 +10,8 @@ entry points (cited lines are the behavior contract):
 - mode='finetune'      — main_bc_finetune.py:25-247 (end-to-end conv
                          policy on raw pixels; no frozen encoder)
 
-``--mesh_shape`` and ``--coordinator`` are not ported yet and raise.
+A ``--mesh_shape`` of more than one device and ``--coordinator`` are not
+ported yet and raise.
 Everything runs on ``cuda`` unless ``--disable_cuda`` asks for the CPU.
 The dataset is device-resident when it fits (uint8 frames for
 finetune), the unroll gather runs where the dataset is, and the metrics
@@ -50,11 +51,23 @@ def compute_dtype(flags):
             else torch.float32)
 
 
+def mesh_shape(text):
+    """``--mesh_shape`` as (data, model): '4,2' -> (4, 2), '4' -> (4, 1),
+    '' -> None (the JAX package's ``parse_mesh_shape``)."""
+    if not text:
+        return None
+    parts = [int(p) for p in text.split(",")]
+    return (parts[0], 1) if len(parts) == 1 else tuple(parts[:2])
+
+
 def check_single_device(flags):
-    if flags.mesh_shape or flags.coordinator:
+    """The port runs on one card: a one-device ``--mesh_shape`` ('1',
+    '1,1') is accepted; a larger mesh and ``--coordinator`` raise."""
+    shape = mesh_shape(flags.mesh_shape)
+    if flags.coordinator or (shape is not None and shape != (1, 1)):
         raise NotImplementedError(
-            "--mesh_shape and --coordinator are not ported yet "
-            f"({PARALLEL_ITEM})")
+            "--mesh_shape of more than one device and --coordinator are "
+            f"not ported yet ({PARALLEL_ITEM})")
 
 
 def embed_in_minibatches(embedding_model, obs, batch_size, limit=None):

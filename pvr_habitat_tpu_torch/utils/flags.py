@@ -5,8 +5,9 @@ Drop-in compatible with the reference argparse namespace
 flag name and default is the same, so sweep grids and checkpointed
 ``flags`` dicts interoperate.  In the port ``--disable_cuda`` runs
 everything on the CPU; without it everything runs on ``cuda`` or raises.
-Flags of parts not ported yet (``--mesh_shape``, ``--coordinator``) are
-accepted and refused by the entry points that would use them.
+Flags of parts not ported yet (a ``--mesh_shape`` of more than one
+device, ``--coordinator``) are accepted and refused by the entry points
+that would use them.
 """
 
 import argparse
