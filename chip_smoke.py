@@ -14,8 +14,9 @@ through ``EmbeddingNet``, the BC pipeline on ResNet-50 embeddings
 ``moco_aug_uber_345``, CLIP ViT-B/32 and RN50, Mask R-CNN C4) and the
 finetune trainer (``main_bc_finetune``), int8 serving through the bulk
 embedder (``ShardedEmbedder``, ``save_embedded_obs --quantize_embed`` and
-``--sharded_embed``), and holds every kernel of those paths against its
-plain PyTorch version.
+``--sharded_embed``), the embedding server, the PNG data path and two
+ranks over ``torch.distributed``, and holds every kernel of those paths
+against its plain PyTorch version.
 Phases, each fatal on failure:
 
 1. device: the card's name and power limit;
@@ -93,7 +94,27 @@ Phases, each fatal on failure:
    of the mae_base one; then
    ``save_embedded_obs`` on phase 7's raw pickle with ``--sharded_embed``
    (f32 on v1, 16 launches a forward, 1e-3 against phase 7's pickle) and
-   ``--quantize_embed`` (cosine > 0.99).
+   ``--quantize_embed`` (cosine > 0.99);
+10. slice, serving and scale-out: (a) an ``EmbeddingServer``
+   (``tools/serve_embeddings.py``) in this process serves resnet50 bf16
+   and f32 and mae_base bf16 on their card default routes to 4
+   concurrent clients of 50 requests of 1-8 frames; launches gated per
+   micro-batch (16 ``fused_bottleneck``, 12 ``fused_attention``), every
+   reply held against a direct ``EmbeddingNet`` call (f32, 1e-3) or the
+   f32 off path (bf16, cosine > 0.99); round-trip p50/p99, the
+   micro-batch sizes, frames/s and the f32 launch-shape search's time;
+   (b) PNG datagen of phase 7's trajectories, decoded bit for bit equal
+   to phase 7's frames, and ``save_embedded_obs`` with its default
+   ``--source png`` (resnet50 f32, 16 launches a trajectory) against
+   ``embed_batches`` at 1e-3, with the codec that ran and decode frames/s;
+   then its read-and-embed loop alone on a built encoder, with and without
+   the decode prefetch: embed frames/s and the share outside the
+   encoder's forwards; (c) two
+   ranks on the one card over gloo (``parallel/dryrun.py``):
+   ``embed_local`` against one process
+   (1e-3) and 5 data-parallel train steps at full width with BatchNorm,
+   the ranks bitwise equal and each step against one process from the
+   same state (rtol 1e-3); then the dry run as one rank over NCCL.
 
 The last three lines are the card's name and power limit, one JSON
 object with the kernels' numbers, and the verdict
@@ -191,6 +212,20 @@ INT_MM_SHAPES = [(8, 147, 11), (17, 27, 32), (100, 99, 11),
 BF16_INSTANCES = {"bottleneck_mma_kernel<0>", "bottleneck_mma_kernel<1>"}
 F32_INSTANCES = {"bottleneck_kernel<ScalarEngine,0>",
                  "bottleneck_kernel<ScalarEngine,1>"}
+# Phase 10, serving and scale-out.  The server: (encoder, compute dtype,
+# launches per micro-batch on its card default route), its clients and
+# their requests of 1 to SERVE_MAX_FRAMES frames, the server's defaults.
+SERVE = [("resnet50", "bfloat16", {"fused_bottleneck": 16}),
+         ("resnet50", "float32", {"fused_bottleneck": 16}),
+         ("mae_base", "bfloat16", {"fused_attention": 12})]
+SERVE_CLIENTS = 4
+SERVE_REQUESTS = 50
+SERVE_MAX_FRAMES = 8
+SERVE_MAX_BATCH = 64
+SERVE_WINDOW_MS = 2.0
+PNG_TRAJECTORIES = BC_TRAJECTORIES   # PNG datagen of phase 7's data
+RANKS = 2                      # processes on the one card, over gloo
+RANK_EMBED_FRAMES = 256        # frames embed_local splits over the ranks
 # kernel -> (TPU kernel it replaces, CUDA source)
 KERNELS = {
     "fused_bottleneck": (
@@ -632,18 +667,40 @@ def profile_call(torch, fn, label, top=8):
 
 
 class ForwardCounter:
-    """Counts encoder forwards: every ``EmbeddingNet.apply`` call is one
-    (the wrapper env, the fused tick and the bulk path all go through it)."""
+    """Counts encoder forwards while it is open (a ``with`` block): every
+    ``EmbeddingNet.apply`` call is one (the wrapper env, the fused tick and
+    the bulk path all go through it).  With ``timed``, each forward also
+    gets a pair of CUDA events, so that the encoder's device time in a run
+    can be set beside the run's wall time.  ``apply`` is restored on
+    exit."""
 
-    def __init__(self, cls):
-        self.count = 0
-        original = cls.apply
+    def __init__(self, torch, cls, timed=False):
+        self.torch, self.cls, self.original = torch, cls, cls.apply
+        self.count, self.events = 0, []
 
         def apply(net, params, frames):
             self.count += 1
-            return original(net, params, frames)
+            if not timed:
+                return self.original(net, params, frames)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self.original(net, params, frames)
+            end.record()
+            self.events.append((start, end))
+            return out
 
         cls.apply = apply
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.apply = self.original
+
+    def device_ms(self):
+        self.torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.events)
 
 
 def train_state_to(bc_step, state, device):
@@ -734,16 +791,15 @@ def bc_slice(torch, fb, fa, device, smi, workdir):
     from pvr_habitat_tpu_torch.utils import checkpoint as ckpt
     from pvr_habitat_tpu_torch.utils.flags import default_flags
 
-    forwards = ForwardCounter(EmbeddingNet)
     launches = {k: 0 for k in KERNELS}
 
     def counted(label, fn, *args):
         """Run ``fn`` with every count at 0 before it; gate its launches
         on 16 per encoder forward and none of the flat kernel."""
         reset_launches(fb, fa)
-        forwards.count = 0
         start = time.perf_counter()
-        out = quiet(fn, *args)
+        with ForwardCounter(torch, EmbeddingNet) as forwards:
+            out = quiet(fn, *args)
         seconds = time.perf_counter() - start
         counts = count_launches(fb, fa)
         want = {"fused_bottleneck": 16 * forwards.count,
@@ -1437,6 +1493,411 @@ def int8_slice(torch, fb, fa, frames, refs, device, smi, workdir):
     return launches
 
 
+class PickTimer:
+    """Seconds spent in ``fused_bottleneck._pick`` calls that missed its
+    cache (the f32 engine's launch-shape search, run once for each new
+    batch size and block shape), on any thread, while it is open (a
+    ``with`` block); ``_pick`` is restored on exit."""
+
+    def __init__(self, fb):
+        self.fb, self.original = fb, fb._pick
+        self.seconds, self.searches = 0.0, 0
+
+        def pick(*args):
+            misses = self.original.cache_info().misses
+            start = time.perf_counter()
+            out = self.original(*args)
+            if self.original.cache_info().misses != misses:
+                self.seconds += time.perf_counter() - start
+                self.searches += 1
+            return out
+
+        fb._pick = pick
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.fb._pick = self.original
+
+
+class ServedNet:
+    """The server's encoder: an ``EmbeddingNet`` whose calls (the
+    micro-batches) are counted, sized and timed (host clock; the call
+    returns numpy, so the device work is done)."""
+
+    def __init__(self, net):
+        self.net, self.out_size = net, net.out_size
+        self.sizes, self.seconds = [], []
+
+    def __call__(self, frames):
+        start = time.perf_counter()
+        out = self.net(frames)
+        self.seconds.append(time.perf_counter() - start)
+        self.sizes.append(frames.shape[0])
+        return out
+
+
+def serve_clients(address):
+    """``SERVE_CLIENTS`` threads, each an ``EmbeddingClient`` sending
+    ``SERVE_REQUESTS`` requests of 1 to ``SERVE_MAX_FRAMES`` uint8 64x64
+    frames.  Returns [(frames, reply (n, D), round trip s)] and the wall
+    time."""
+    import threading
+
+    from pvr_habitat_tpu_torch.tools.serve_embeddings import EmbeddingClient
+
+    results, errors = {}, []
+
+    def client(c):
+        try:
+            rng = np.random.RandomState(SEED + 100 + c)
+            conn = EmbeddingClient(address)
+            out = []
+            for _ in range(SERVE_REQUESTS):
+                n = rng.randint(1, SERVE_MAX_FRAMES + 1)
+                frames = rng.randint(0, 256, size=(n, 64, 64, 3),
+                                     dtype=np.uint8)
+                start = time.perf_counter()
+                reply = conn(frames)
+                out.append((frames, reply.reshape(len(frames), -1),
+                            time.perf_counter() - start))
+            conn.close()
+            results[c] = out
+        except Exception as exc:  # noqa: BLE001 — reported below
+            errors.append(f"client {c}: {exc!r}")
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(SERVE_CLIENTS)]
+    start = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - start
+    if errors or any(t.is_alive() for t in threads) \
+            or len(results) != SERVE_CLIENTS:
+        raise AssertionError(f"server clients: {errors or 'timed out'}")
+    return [r for c in sorted(results) for r in results[c]], wall
+
+
+def serve_slice(torch, fb, fa, device, smi):
+    """Phase 10a: an ``EmbeddingServer`` in this process serves each
+    encoder of ``SERVE`` (the card default route) to ``SERVE_CLIENTS``
+    concurrent clients; launches gated per micro-batch, every reply held
+    against a direct ``EmbeddingNet`` call on the same frames (f32 at
+    1e-3) or against the f32 off path (bf16, per-frame cosine > 0.99).
+    Returns the launches."""
+    import collections
+
+    from pvr_habitat_tpu_torch.models.embedding_net import EmbeddingNet
+    from pvr_habitat_tpu_torch.tools.serve_embeddings import EmbeddingServer
+
+    launches = {k: 0 for k in KERNELS}
+    refs = {}
+    for name, dtype_name, per_batch in SERVE:
+        label = f"server {name} {dtype_name}"
+        dtype = getattr(torch, dtype_name)
+        start = time.perf_counter()
+        net = EmbeddingNet(name, pretrained=False, compute_dtype=dtype,
+                           device=device)
+        served = ServedNet(net)
+        server = EmbeddingServer(served, port=0, max_batch=SERVE_MAX_BATCH,
+                                 window_ms=SERVE_WINDOW_MS).start()
+        print(f"{label}: route {net.fused}, built and warmed (on the "
+              f"dispatcher thread: {served.seconds[0] * 1e3:.1f} ms) in "
+              f"{time.perf_counter() - start:.1f} s", flush=True)
+        served.sizes, served.seconds = [], []
+        reset_launches(fb, fa)
+        try:
+            with PickTimer(fb) as picks:
+                replies, wall = serve_clients(server.address)
+        finally:
+            server.close()
+        counts = count_launches(fb, fa)
+        batches = len(served.sizes)
+        want = {k: per_batch.get(k, 0) * batches for k in KERNELS}
+        if counts != want:
+            raise AssertionError(f"{label}: launches {counts} != {want} "
+                                 f"over {batches} micro-batches")
+        for k in KERNELS:
+            launches[k] += counts[k]
+        frames = np.concatenate([f for f, _, _ in replies])
+        got = np.concatenate([r for _, r, _ in replies])
+        if sum(served.sizes) != len(frames) or not np.isfinite(got).all():
+            raise AssertionError(f"{label}: {sum(served.sizes)} frames "
+                                 f"served of {len(frames)}")
+        if dtype == torch.float32:
+            direct = net.embed_batches(frames, BULK_BATCH)
+            np.testing.assert_allclose(got, direct, atol=1e-3, rtol=1e-3)
+            gate = (f"max abs err vs a direct call "
+                    f"{np.abs(got - direct).max():.3g} (1e-3)")
+        else:
+            if name not in refs:
+                refs[name] = EmbeddingNet(
+                    name, pretrained=False, compute_dtype=torch.float32,
+                    fused="off", device=device).embed_batches(frames,
+                                                              BULK_BATCH)
+            cos = row_cosine(torch, torch.from_numpy(got),
+                             torch.from_numpy(refs[name]))
+            if cos <= 0.99:
+                raise AssertionError(f"{label}: cosine vs f32 off {cos}")
+            gate = f"min cosine vs f32 off {cos:.6f} (0.99)"
+        rt = np.asarray([s for _, _, s in replies]) * 1e3
+        hist = collections.Counter(
+            min(8 * ((s - 1) // 8 + 1), 8 * (SERVE_MAX_BATCH // 8 + 1))
+            for s in served.sizes)
+        busy = sum(served.seconds)
+        fwd = np.asarray(served.seconds) * 1e3
+        print(f"{label}: {len(replies)} requests, {len(frames)} frames from "
+              f"{SERVE_CLIENTS} clients in {batches} micro-batches; "
+              f"launches {counts}; {gate}", flush=True)
+        print(f"{label}: round trip p50 {np.percentile(rt, 50):.3f} ms, p99 "
+              f"{np.percentile(rt, 99):.3f} ms; {len(frames) / wall:.1f} "
+              f"frames/s over {wall:.2f} s; micro-batch frames (up to) "
+              f"{dict(sorted(hist.items()))}; forwards {busy:.2f} s (ms: "
+              f"first {fwd[0]:.1f}, median {np.median(fwd):.1f}, max "
+              f"{fwd.max():.1f}, the slowest request's "
+              f"{rt.max():.1f}); "
+              f"launch-shape searches {picks.searches} taking "
+              f"{picks.seconds * 1e3:.1f} ms, {picks.seconds / busy:.2%} of "
+              f"the forwards [{smi}]", flush=True)
+        del net, served, server
+        torch.cuda.empty_cache()
+    return launches
+
+
+def png_slice(torch, fb, fa, device, smi, workdir):
+    """Phase 10b: PNG datagen of phase 7's ``PNG_TRAJECTORIES``
+    trajectories, decoded against phase 7's raw pickle (the same
+    trajectories, bit for bit); ``save_embedded_obs`` with its default
+    ``--source png`` (resnet50 f32, one forward a trajectory) gated on its
+    launches and held against a direct ``embed_batches`` of the decoded
+    frames at 1e-3; then the tool's read-and-embed loop
+    (``read_png_trajectories(embed_fn=...)``) alone, on an encoder built
+    before the clock starts, with the decode prefetch on (the tool's
+    default) and off: embed frames/s, and the time inside the encoder's
+    forwards beside the loop's wall time.  Returns the launches."""
+    import os
+
+    from pvr_habitat_tpu_torch.data import formats, native
+    from pvr_habitat_tpu_torch.models.embedding_net import EmbeddingNet
+    from pvr_habitat_tpu_torch.tools import save_embedded_obs
+    from pvr_habitat_tpu_torch.tools import save_opt_trajectories_png
+
+    root = os.path.join(workdir, "png")
+    flags = save_opt_trajectories_png.build_tool_parser().parse_args(
+        ["--env", BC_ENV, "--save_path", root, "--n_trajectories",
+         str(PNG_TRAJECTORIES)])
+    start = time.perf_counter()
+    traj_dir = quiet(save_opt_trajectories_png.gen_data_habitat, flags)
+    seconds = time.perf_counter() - start
+    codec = native.codec()
+    start = time.perf_counter()
+    decoded = formats.read_png_trajectories(traj_dir)
+    decode_s = time.perf_counter() - start
+    raw = formats.load_pickle(formats.raw_path(workdir, BC_ENV))
+    want = np.concatenate(raw["obs"][:PNG_TRAJECTORIES])
+    if decoded["obs"].shape != want.shape \
+            or not np.array_equal(decoded["obs"], want):
+        raise AssertionError(f"PNG frames differ from the written ones: "
+                             f"{decoded['obs'].shape} vs {want.shape}")
+    n = len(want)
+    sizes = [len(o) for o in raw["obs"][:PNG_TRAJECTORIES]]
+    print(f"PNG datagen: {PNG_TRAJECTORIES} trajectories of {min(sizes)} "
+          f"to {max(sizes)} frames, {n} frames in {seconds:.1f} s; decoded "
+          f"by {codec}{'' if codec == 'native' else f' ({native._why})'} "
+          f"equal to phase 7's frames bit for bit; decode "
+          f"{n / decode_s:.1f} frames/s", flush=True)
+
+    launches = {k: 0 for k in KERNELS}
+
+    def gate(label, forwards):
+        counts = count_launches(fb, fa)
+        want_counts = {k: 0 for k in KERNELS}
+        want_counts["fused_bottleneck"] = 16 * forwards
+        if counts != want_counts or forwards != PNG_TRAJECTORIES:
+            raise AssertionError(f"{label}: launches {counts}, {forwards} "
+                                 "forwards")
+        for k in KERNELS:
+            launches[k] += counts[k]
+        return counts
+
+    flags = save_embedded_obs.build_tool_parser().parse_args(
+        ["--env", BC_ENV, "--data_path", root, "--embedding_name",
+         "resnet50", "--disable_pretrained_embedding"]
+        + (["--disable_cuda"] if device.type == "cpu" else []))
+    reset_launches(fb, fa)
+    start = time.perf_counter()
+    with ForwardCounter(torch, EmbeddingNet) as forwards, \
+            PickTimer(fb) as picks:
+        path = quiet(save_embedded_obs.run, flags)
+    tool_s = time.perf_counter() - start
+    counts = gate("PNG embed", forwards.count)
+    got = formats.load_pickle(path)["obs"]
+    net = EmbeddingNet("resnet50", pretrained=False, device=device)
+    direct = net.embed_batches(decoded["obs"], BULK_BATCH)
+    np.testing.assert_allclose(got, direct, atol=1e-3, rtol=1e-3)
+    print(f"save_embedded_obs --source png (resnet50 f32, {forwards.count} "
+          f"forwards, batch = a trajectory's frames): launches {counts}; max "
+          f"abs err vs embed_batches {np.abs(got - direct).max():.3g} "
+          f"(1e-3); tool wall time {tool_s:.2f} s, {n / tool_s:.1f} "
+          f"frames/s with set-up (encoder build, weight save, "
+          f"{picks.searches} first-seen launch-shape searches taking "
+          f"{picks.seconds * 1e3:.1f} ms) [{smi}]", flush=True)
+
+    for prefetch in (2, 0):
+        reset_launches(fb, fa)
+        with ForwardCounter(torch, EmbeddingNet, timed=True) as timer:
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            out = formats.read_png_trajectories(traj_dir, embed_fn=net,
+                                                prefetch=prefetch)
+            wall_ms = (time.perf_counter() - start) * 1e3
+            device_ms = timer.device_ms()
+        gate(f"PNG loop prefetch {prefetch}", timer.count)
+        np.testing.assert_allclose(out["obs"], direct, atol=1e-3, rtol=1e-3)
+        print(f"read-and-embed loop, prefetch {prefetch}"
+              f"{' (the default)' if prefetch else ' (decode inline)'}: "
+              f"{n / wall_ms * 1e3:.1f} frames/s over {wall_ms:.1f} ms "
+              f"(encoder built before); inside the encoder forwards "
+              f"{device_ms:.1f} ms (CUDA events, a forward's own dispatch "
+              f"gaps included), outside them "
+              f"{1 - device_ms / wall_ms:.1%} [{smi}]", flush=True)
+    return launches
+
+
+def ranks_slice(torch, fb, fa, device, smi, workdir):
+    """Phase 10c: two ranks on the one card over gloo
+    (``parallel/dryrun.py``): ``embed_local`` of ``RANK_EMBED_FRAMES``
+    frames (resnet50 f32, batch 32), each rank's rows against one process
+    at rtol 1e-3; then ``dryrun.STEPS`` data-parallel train steps at full
+    width with BatchNorm on phase 7's embeddings, the ranks bitwise equal
+    and each step against one process from the same state at rtol 1e-3;
+    last, the dry run (``multichip``) as one rank with the card to itself,
+    which takes NCCL.  Returns the ranks' launches."""
+    import os
+
+    from pvr_habitat_tpu_torch.data import formats, sampler
+    from pvr_habitat_tpu_torch.data.embed_pipeline import ShardedEmbedder
+    from pvr_habitat_tpu_torch.parallel import dryrun
+    from pvr_habitat_tpu_torch.train import bc_step
+    from pvr_habitat_tpu_torch.utils.flags import default_flags
+
+    launches = {k: 0 for k in KERNELS}
+    prefix = os.path.join(workdir, "embed_rank")
+    start = time.perf_counter()
+    # each rank keeps its share of the host's cores
+    threads = {"OMP_NUM_THREADS": str(max(1, torch.get_num_threads()
+                                          // RANKS))}
+    logs = dryrun.launch(RANKS, [
+        "embed", "--device", device.type, "--name", "resnet50", "--frames",
+        str(RANK_EMBED_FRAMES), "--batch_size", "32", "--out", prefix],
+        timeout=600, env=threads)
+    seconds = time.perf_counter() - start
+    backends = {line for log in logs for line in log.splitlines()
+                if line.startswith("torch.distributed:")}
+    frames = np.random.RandomState(dryrun.SEED).randint(
+        0, 256, size=(RANK_EMBED_FRAMES, 64, 64, 3), dtype=np.uint8)
+    want = ShardedEmbedder("resnet50", batch_size=32, pretrained=False,
+                           compute_dtype=torch.float32,
+                           device=device).embed_all(frames)
+    rows, errs = 0, []
+    for rank in range(RANKS):
+        out = np.load(f"{prefix}{rank}.npz")
+        start_row, stop = int(out["start"]), int(out["stop"])
+        np.testing.assert_allclose(out["local"], want[start_row:stop],
+                                   atol=1e-3, rtol=1e-3)
+        errs.append(float(np.abs(out["local"] - want[start_row:stop]).max()))
+        counts = dict(zip(out["kernels"].tolist(), out["launches"].tolist()))
+        per_rank = {k: 0 for k in KERNELS}
+        per_rank["fused_bottleneck"] = 16 * math.ceil((stop - start_row) / 32)
+        if counts != per_rank:
+            raise AssertionError(f"rank {rank} embed: launches {counts}")
+        for k in KERNELS:
+            launches[k] += counts[k]
+        rows += stop - start_row
+    if rows != RANK_EMBED_FRAMES:
+        raise AssertionError(f"ranks embedded {rows} rows")
+    print(f"embed_local over {RANKS} ranks on one card: {rows} frames "
+          f"(resnet50 f32, batch 32) in {seconds:.1f} s (process starts "
+          f"included); max abs err vs one process {max(errs):.3g} (1e-3); "
+          f"launches {launches}; {sorted(backends)}", flush=True)
+
+    prefix = os.path.join(workdir, "steps_rank")
+    snapshots = os.path.join(workdir, "snapshots")
+    os.makedirs(snapshots)
+    data_path = formats.embedded_path(workdir, BC_ENV, "resnet50")
+    start = time.perf_counter()
+    dryrun.launch(RANKS, [
+        "steps", "--device", device.type, "--data", data_path, "--snapshots",
+        snapshots, "--out", prefix], timeout=600, env=threads)
+    seconds = time.perf_counter() - start
+    ranks = [np.load(f"{prefix}{rank}.npz") for rank in range(RANKS)]
+    for r in ranks[1:]:
+        if not np.array_equal(r["metrics"], ranks[0]["metrics"]):
+            raise AssertionError(f"ranks differ: {ranks[0]['metrics']} vs "
+                                 f"{r['metrics']}")
+    data = formats.load_pickle(data_path)
+    tensors = sampler.to_tensors(dict(
+        obs=data["obs"].astype(np.float32),
+        action=data["action"].astype(np.int64),
+        done=data["done"].astype(bool)), device)
+    fl = default_flags(batch_norm=True)
+    _, opt = bc_step.create_train_state(
+        np.random.RandomState(SEED), (data["obs"].shape[1],), 3, fl,
+        max_epochs=100, device=device)
+    step = bc_step.make_train_step(opt, batch_norm=True)
+    one = []
+    starts = [row.tolist() for row in ranks[0]["starts"]]
+    for k, row in enumerate(starts):
+        path = os.path.join(snapshots, f"step_{k}.pt")
+        state = dryrun.restore(torch.load(path, weights_only=False), device)
+        os.remove(path)
+        state, m = step(state, sampler.gather_unrolls(tensors, row,
+                                                      fl.unroll_length))
+        one.append([m["loss"].item(), m["gradient_norm"].item()])
+    one = np.asarray(one)
+    np.testing.assert_allclose(ranks[0]["metrics"], one, rtol=1e-3)
+    rel = np.abs(ranks[0]["metrics"] / one - 1).max(axis=0)
+    torch.cuda.synchronize()
+    start_one = time.perf_counter()
+    for row in starts:
+        state, m = step(state, sampler.gather_unrolls(tensors, row,
+                                                      fl.unroll_length))
+    m["loss"].item()
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - start_one
+    frames = len(starts) * fl.batch_size * fl.unroll_length
+    dp_s = max(float(r["seconds"]) for r in ranks)
+    reduce_s = max(float(r["reduce_seconds"]) for r in ranks)
+    print(f"{len(starts)} data-parallel train steps over {RANKS} ranks (B "
+          f"{fl.batch_size}, T {fl.unroll_length}, obs "
+          f"{data['obs'].shape[1]}, batch_norm) in {seconds:.1f} s (process "
+          f"starts included): ranks bitwise equal; losses "
+          f"{ranks[0]['metrics'][:, 0].round(6).tolist()}; vs one process "
+          f"from the same state: max rel err loss {rel[0]:.3g}, gradient "
+          f"norm {rel[1]:.3g} (rtol 1e-3); training {frames / dp_s:.1f} "
+          f"frames/s over {RANKS} ranks ({dp_s / len(starts) * 1e3:.1f} ms a "
+          f"step) against {frames / one_s:.1f} in one process "
+          f"({one_s / len(starts) * 1e3:.1f} ms); the gradient all-reduce "
+          f"alone ({int(ranks[0]['reduce_numel']) * 4 / 1e6:.1f} MB through "
+          f"the host) {reduce_s / len(starts) * 1e3:.1f} ms [{smi}]",
+          flush=True)
+
+    start = time.perf_counter()
+    log = dryrun.launch(1, ["multichip", "--device", device.type],
+                        timeout=300)[0]
+    if "backend nccl" not in log or log.count("ranks equal OK") != 2 \
+            or "sharded embedder parity OK" not in log:
+        raise AssertionError(f"the dry run on one rank over NCCL:\n{log}")
+    print(f"dry run, one rank with the card to itself, in "
+          f"{time.perf_counter() - start:.1f} s: "
+          f"{[x for x in log.splitlines() if 'backend' in x]}; DP steps "
+          "and the sharded embedder OK", flush=True)
+    return launches
+
+
 def main():
     import torch
 
@@ -1588,6 +2049,19 @@ def main():
                             smi, workdir.name)
         for k in KERNELS:
             launches[k] += counts[k]
+        print(f"slice phase {time.perf_counter() - t0:.1f} s")
+
+        t0 = phase("10 slice: serving and scale-out")
+        for part in (
+                lambda: serve_slice(torch, fb, fa, device, smi),
+                lambda: png_slice(torch, fb, fa, device, smi, workdir.name),
+                lambda: ranks_slice(torch, fb, fa, device, smi,
+                                    workdir.name)):
+            start = time.perf_counter()
+            counts = part()
+            for k in KERNELS:
+                launches[k] += counts[k]
+            print(f"part {time.perf_counter() - start:.1f} s", flush=True)
         print(f"slice phase {time.perf_counter() - t0:.1f} s")
 
     line = {"kernels": [{

@@ -14,9 +14,9 @@ made f32 on the host.  Otherwise the float path is ``EmbeddingNet``'s in
 ``compute_dtype``, with the params cast once to a bf16 ``compute_dtype``,
 and returns f32.
 
-The JAX package shards the batches over a device mesh; this port runs on
-one card, and spreading it over several processes is ROADMAP.md queue 1,
-item 7.
+The JAX package shards the batches over a device mesh.  Here one process
+is one device, and several processes each embed their slice of a
+dataset (``embed_local``, ``parallel/multihost.py``).
 """
 
 import numpy as np
@@ -89,12 +89,11 @@ class ShardedEmbedder:
         return np.concatenate(results)[:n]
 
     def embed_local(self, frames):
-        """This process's slice of a dataset -> its embeddings.  One
-        process embeds everything; several are not ported yet."""
-        if torch.distributed.is_available() \
-                and torch.distributed.is_initialized() \
-                and torch.distributed.get_world_size() > 1:
-            raise NotImplementedError(
-                "multi-process bulk embedding is not ported yet "
-                "(ROADMAP.md queue 1, item 7)")
+        """Several processes: ``frames`` is THIS process's slice of the
+        dataset (``multihost.process_slice``); returns the embeddings of
+        exactly those rows, f32.  The JAX package pads every process to a
+        common step count, since its forward is one SPMD program over
+        the global mesh; here a forward has no collective, so each
+        process runs its own steps, and only the gather of the slices
+        (``multihost.allgather_rows``) needs the ranks together."""
         return self.embed_all(frames)

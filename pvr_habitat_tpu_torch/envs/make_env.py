@@ -18,7 +18,7 @@ from pvr_habitat_tpu_torch.envs.wrappers import (EmbeddingWrapper,
                                                  FrameStack,
                                                  NavigationWrapper)
 
-ADAPTERS_ITEM = "ROADMAP.md queue 1, item 3"
+ADAPTERS_ITEM = "ROADMAP.md queue 1, item 2"
 
 
 def _habitat_available():

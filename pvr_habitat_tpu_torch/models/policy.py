@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from pvr_habitat_tpu_torch.models import common as cm
 from pvr_habitat_tpu_torch.models import convert
 from pvr_habitat_tpu_torch.ops.lstm import lstm_scan, stack_lstm_params
+from pvr_habitat_tpu_torch.parallel import multihost
 from pvr_habitat_tpu_torch.utils.platform import resolve_device
 
 HIDDEN = 1024
@@ -139,27 +140,38 @@ def initial_state(batch_size, device=None):
 # -----------------------------------------------------------------------------
 
 
-def _batch_norm_1d(x, params, batch_stats, train):
+def _batch_norm_1d(x, params, batch_stats, train, sync=False):
     """Train mode normalises with the biased batch variance and moves the
-    running variance with the unbiased one, as torch's BatchNorm1d does."""
+    running variance with the unbiased one, as torch's BatchNorm1d does.
+    ``sync``: the batch is sharded over the ranks of ``torch.distributed``
+    in equal parts, and the statistics are the global batch's (the sums
+    of x and of (x - mean)^2 over every rank), as the JAX package
+    computes them over a sharded batch; gradients flow through the sums
+    to every rank."""
     gamma = params["fc.0.weight"]
     beta = params["fc.0.bias"]
-    if train:
-        mean = x.mean(dim=0)
-        var = x.var(dim=0, unbiased=False)
-        n = x.shape[0]
-        unbiased = var * (n / max(n - 1, 1))
-        new_stats = {
-            "fc.0.running_mean": (1 - BN_MOMENTUM)
-            * batch_stats["fc.0.running_mean"] + BN_MOMENTUM * mean.detach(),
-            "fc.0.running_var": (1 - BN_MOMENTUM)
-            * batch_stats["fc.0.running_var"]
-            + BN_MOMENTUM * unbiased.detach(),
-        }
-    else:
+    if not train:
         mean = batch_stats["fc.0.running_mean"]
         var = batch_stats["fc.0.running_var"]
-        new_stats = batch_stats
+        x = (x - mean) * torch.rsqrt(var + BN_EPS) * gamma + beta
+        return x, batch_stats
+    if sync:
+        n = x.shape[0] * multihost.world()[0]
+        mean = multihost.all_reduce_sum_differentiable(x.sum(dim=0)) / n
+        var = multihost.all_reduce_sum_differentiable(
+            ((x - mean) ** 2).sum(dim=0)) / n
+    else:
+        n = x.shape[0]
+        mean = x.mean(dim=0)
+        var = x.var(dim=0, unbiased=False)
+    unbiased = var * (n / max(n - 1, 1))
+    new_stats = {
+        "fc.0.running_mean": (1 - BN_MOMENTUM)
+        * batch_stats["fc.0.running_mean"] + BN_MOMENTUM * mean.detach(),
+        "fc.0.running_var": (1 - BN_MOMENTUM)
+        * batch_stats["fc.0.running_var"]
+        + BN_MOMENTUM * unbiased.detach(),
+    }
     x = (x - mean) * torch.rsqrt(var + BN_EPS) * gamma + beta
     return x, new_stats
 
@@ -191,13 +203,15 @@ def _trunk_to_outputs(x, params, done, core_state, fc0, t, b, train,
 
 
 def apply_policy(params, batch_stats, inputs, core_state, *, batch_norm=False,
-                 train=False, generator=None):
+                 train=False, generator=None, sync_batch_stats=False):
     """PolicyNet forward.
 
     inputs: dict(obs=(T, B, O) float, done=(T, B) bool-ish).
     ``generator`` (a ``torch.Generator`` on the params' device) draws the
     train-mode actions, sampled from the logits as the reference does;
-    eval mode takes the argmax.
+    eval mode takes the argmax.  ``sync_batch_stats``: B is this rank's
+    share of a batch sharded over the ranks, and train-mode BatchNorm
+    takes the global batch's statistics.
     Returns (outputs, new_core_state, new_batch_stats).
     """
     obs, done = inputs["obs"], inputs["done"]
@@ -207,7 +221,8 @@ def apply_policy(params, batch_stats, inputs, core_state, *, batch_norm=False,
     new_stats = batch_stats
     fc0 = 0
     if batch_norm:
-        x, new_stats = _batch_norm_1d(x, params, batch_stats, train)
+        x, new_stats = _batch_norm_1d(x, params, batch_stats, train,
+                                      sync_batch_stats)
         fc0 = 1
     outputs, new_state = _trunk_to_outputs(x, params, done, core_state, fc0,
                                            t, b, train, generator)
@@ -215,7 +230,8 @@ def apply_policy(params, batch_stats, inputs, core_state, *, batch_norm=False,
 
 
 def apply_conv_policy(params, batch_stats, inputs, core_state, *,
-                      batch_norm=False, train=False, generator=None):
+                      batch_norm=False, train=False, generator=None,
+                      sync_batch_stats=False):
     """PolicyNetWithConv forward over raw pixels.
 
     inputs: dict(obs=(T, B, H, W, C*n) uint8 or float, done=(T, B)).
@@ -239,7 +255,8 @@ def apply_conv_policy(params, batch_stats, inputs, core_state, *,
     new_stats = batch_stats
     fc0 = 0
     if batch_norm:
-        x, new_stats = _batch_norm_1d(x, params, batch_stats, train)
+        x, new_stats = _batch_norm_1d(x, params, batch_stats, train,
+                                      sync_batch_stats)
         fc0 = 1
     outputs, new_state = _trunk_to_outputs(x, params, done, core_state, fc0,
                                            t, b, train, generator)

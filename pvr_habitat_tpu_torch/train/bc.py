@@ -10,9 +10,14 @@ entry points (cited lines are the behavior contract):
 - mode='finetune'      — main_bc_finetune.py:25-247 (end-to-end conv
                          policy on raw pixels; no frozen encoder)
 
-A ``--mesh_shape`` of more than one device and ``--coordinator`` are not
-ported yet and raise.
 Everything runs on ``cuda`` unless ``--disable_cuda`` asks for the CPU.
+``--coordinator host:port --num_processes d --process_id i`` makes the
+run one rank of d over ``torch.distributed`` (``parallel/multihost.py``),
+with ``--mesh_shape d`` (or none: every process on 'data'): data
+parallelism, in which every rank samples the same global starts and
+trains on its B/d columns of them, the gradients and the BatchNorm
+statistics are summed over the ranks (``train/bc_step.py``), the ranks
+stay bitwise equal, and rank 0 alone writes the stats and checkpoints.
 The dataset is device-resident when it fits (uint8 frames for
 finetune), the unroll gather runs where the dataset is, and the metrics
 stay on the device between eval points.
@@ -28,6 +33,8 @@ import torch
 from pvr_habitat_tpu_torch.data import formats, sampler
 from pvr_habitat_tpu_torch.envs.environment import make_environment
 from pvr_habitat_tpu_torch.models.embedding_net import EmbeddingNet
+from pvr_habitat_tpu_torch.parallel import mesh as pmesh
+from pvr_habitat_tpu_torch.parallel import multihost
 from pvr_habitat_tpu_torch.train import bc_step
 from pvr_habitat_tpu_torch.train.evaluate import (FusedPolicyRunner,
                                                   PolicyRunner,
@@ -37,8 +44,6 @@ from pvr_habitat_tpu_torch.utils import checkpoint as ckpt
 from pvr_habitat_tpu_torch.utils import profiling
 from pvr_habitat_tpu_torch.utils import stats as stats_util
 from pvr_habitat_tpu_torch.utils.platform import resolve_device
-
-PARALLEL_ITEM = "ROADMAP.md queue 1, item 7"
 
 
 def flags_device(flags):
@@ -51,23 +56,16 @@ def compute_dtype(flags):
             else torch.float32)
 
 
-def mesh_shape(text):
-    """``--mesh_shape`` as (data, model): '4,2' -> (4, 2), '4' -> (4, 1),
-    '' -> None (the JAX package's ``parse_mesh_shape``)."""
-    if not text:
-        return None
-    parts = [int(p) for p in text.split(",")]
-    return (parts[0], 1) if len(parts) == 1 else tuple(parts[:2])
-
-
-def check_single_device(flags):
-    """The port runs on one card: a one-device ``--mesh_shape`` ('1',
-    '1,1') is accepted; a larger mesh and ``--coordinator`` raise."""
-    shape = mesh_shape(flags.mesh_shape)
-    if flags.coordinator or (shape is not None and shape != (1, 1)):
-        raise NotImplementedError(
-            "--mesh_shape of more than one device and --coordinator are "
-            f"not ported yet ({PARALLEL_ITEM})")
+def data_columns(batch_size, mesh):
+    """This rank's columns of a global batch of ``batch_size`` sharded
+    over the mesh's 'data' axis (equal shards, as the JAX trainer
+    asserts)."""
+    if batch_size % mesh.data:
+        raise ValueError(f"batch_size {batch_size} does not divide over "
+                         f"the mesh's data axis of {mesh.data}")
+    per_rank = batch_size // mesh.data
+    rank = multihost.world()[1]
+    return slice(rank * per_rank, (rank + 1) * per_rank)
 
 
 def embed_in_minibatches(embedding_model, obs, batch_size, limit=None):
@@ -160,8 +158,15 @@ def run(flags, mode="precomputed"):
     flags = copy.copy(flags)
     if mode not in ("precomputed", "embed_at_load", "finetune"):
         raise ValueError(f"unknown mode: {mode}")
-    check_single_device(flags)
     device = flags_device(flags)
+    with multihost.session(flags, device) as device:
+        return _run(flags, mode, device)
+
+
+def _run(flags, mode, device):
+    mesh = pmesh.make_mesh(pmesh.parse_mesh_shape(flags.mesh_shape))
+    columns = data_columns(flags.batch_size, mesh)
+    is_writer = multihost.world()[1] == 0
     # Fix seeds (reference: main_bc_2.py:28-31).
     np.random.seed(flags.run_id)
     random.seed(flags.run_id)
@@ -238,6 +243,9 @@ def run(flags, mode="precomputed"):
     print("   training environment(s):", from_env)
     print("   testing environment(s):", to_env)
     print("   device:", device)
+    if mesh.data > 1:
+        print(f"   data parallel: {mesh.data} ranks, columns "
+              f"[{columns.start}, {columns.stop}) of each batch")
     if flags.debug:
         print("   RUNNING IN DEBUG MODE!")
 
@@ -298,12 +306,14 @@ def run(flags, mode="precomputed"):
         init_frames = 0
 
     # One step an epoch on starts drawn from the host's ``random`` stream,
-    # as the reference does; the unroll gather runs on the device that
+    # as the reference does (every rank draws the same global starts and
+    # trains on its columns); the unroll gather runs on the device that
     # holds the dataset.  ``--train_chunk`` saves dispatches in the JAX
     # package only and changes nothing here.
     step_fn = bc_step.make_train_step(opt, batch_norm=flags.batch_norm,
                                       conv_policy=conv_policy,
-                                      max_grad_norm=flags.max_grad_norm)
+                                      max_grad_norm=flags.max_grad_norm,
+                                      data_parallel=mesh.data > 1)
 
     print("=== Training policy ===")
     frames_per_epoch = flags.batch_size * flags.unroll_length
@@ -317,7 +327,7 @@ def run(flags, mode="precomputed"):
             starts = sampler.sample_with_minimum_distance(
                 n=n_samples, k=flags.batch_size, d=flags.unroll_length)
             with profiling.annotate("train"):
-                batch = sampler.gather_unrolls(train_data, starts,
+                batch = sampler.gather_unrolls(train_data, starts[columns],
                                                flags.unroll_length)
                 state, metrics = step_fn(
                     state, {k: v.to(device) for k, v in batch.items()})
@@ -349,7 +359,7 @@ def run(flags, mode="precomputed"):
                 print("   training loss", loss)
                 print("   gradient norm", gnorm)
 
-                if not flags.disable_save:
+                if is_writer and not flags.disable_save:
                     stats_util.save_stats(save_path + ".pickle", stats)
                     ckpt.save_checkpoint(
                         save_path + ".tar",

@@ -8,6 +8,15 @@ is functional (flat dicts of tensors in, new ones out), as in the JAX
 package, and the metrics stay 0-d tensors on the device until a caller
 reads them.
 
+Data parallelism (``data_parallel=True``): the batch is this rank's
+columns of a global batch sharded in equal parts over the ranks of
+``torch.distributed``.  The BatchNorm statistics are the global batch's,
+the gradients are summed over the ranks and divided by their number
+before the pre-clip norm and the clip, and the logged loss is the
+global mean, so every rank takes the same step as one device on the
+global batch (the JAX package's sharded step, where XLA places the
+all-reduce).
+
 The JAX package's fused-gather and chunked steps exist only to save
 dispatches (one per epoch, one per eval block).  Eager PyTorch has no
 such cost to save: K of its steps on the batches that
@@ -21,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from pvr_habitat_tpu_torch.models import policy as policy_mod
+from pvr_habitat_tpu_torch.parallel import multihost
 from pvr_habitat_tpu_torch.train import optim
 from pvr_habitat_tpu_torch.utils.platform import resolve_device
 
@@ -63,7 +73,7 @@ def nll_loss(logits, actions):
 
 
 def step_body(state, batch, opt, *, batch_norm=False, conv_policy=False,
-              max_grad_norm=40.0):
+              max_grad_norm=40.0, data_parallel=False):
     """One epoch on a gathered batch dict(obs, action, done) of (T, B,
     ...) tensors.  Returns (new_state, dict(loss, gradient_norm))."""
     b = batch["action"].shape[1]
@@ -75,7 +85,8 @@ def step_body(state, batch, opt, *, batch_norm=False, conv_policy=False,
         params, state.batch_stats,
         dict(obs=batch["obs"], done=batch["done"]),
         policy_mod.initial_state(b, batch["obs"].device),
-        batch_norm=batch_norm, train=True, generator=state.generator)
+        batch_norm=batch_norm, train=True, generator=state.generator,
+        sync_batch_stats=data_parallel)
     loss = nll_loss(outputs["policy_logits"], batch["action"])
     # The baseline head is not in the loss: its grads are zeros, as
     # jax.grad gives them.
@@ -83,25 +94,45 @@ def step_body(state, batch, opt, *, batch_norm=False, conv_policy=False,
                                 allow_unused=True)
     grads = {k: torch.zeros_like(p) if g is None else g
              for (k, p), g in zip(params.items(), grads)}
+    loss = loss.detach()
+    if data_parallel:
+        grads, loss = _average_over_ranks(grads, loss)
     grads, gnorm = optim.clip_by_global_norm_torch(grads, max_grad_norm)
     updates, new_opt_state = opt.update(grads, state.opt_state)
     new_params = optim.apply_updates(state.params, updates)
     new_state = TrainState(new_params, new_stats, new_opt_state,
                            state.generator)
-    return new_state, dict(loss=loss.detach(), gradient_norm=gnorm)
+    return new_state, dict(loss=loss, gradient_norm=gnorm)
+
+
+def _average_over_ranks(grads, loss):
+    """The mean over the ranks of every gradient and of the loss, by one
+    all-reduce of one flat buffer (equal shards: the mean of the ranks'
+    means is the global batch's)."""
+    size = multihost.world()[0]
+    flat = torch.cat([g.reshape(-1) for g in grads.values()]
+                     + [loss.reshape(1)])
+    flat = multihost.all_reduce_sum(flat) / size
+    out, offset = {}, 0
+    for k, g in grads.items():
+        out[k] = flat[offset:offset + g.numel()].view_as(g)
+        offset += g.numel()
+    return out, flat[offset]
 
 
 def make_train_step(opt, *, batch_norm=False, conv_policy=False,
-                    max_grad_norm=40.0):
+                    max_grad_norm=40.0, data_parallel=False):
     """Returns step(state, batch) -> (state, metrics).
 
     batch: dict(obs=(T, B, ...), action=(T, B), done=(T, B)) tensors; obs
     are uint8 frames (T, B, H, W, C) for the conv policy.
     metrics: dict(loss, gradient_norm) — pre-clip norm, as logged by the
-    reference.
+    reference.  ``data_parallel``: the batch is this rank's share of a
+    global batch (see the module docstring).
     """
     def step(state, batch):
         return step_body(state, batch, opt, batch_norm=batch_norm,
-                         conv_policy=conv_policy, max_grad_norm=max_grad_norm)
+                         conv_policy=conv_policy, max_grad_norm=max_grad_norm,
+                         data_parallel=data_parallel)
 
     return step

@@ -5,9 +5,10 @@ Drop-in compatible with the reference argparse namespace
 flag name and default is the same, so sweep grids and checkpointed
 ``flags`` dicts interoperate.  In the port ``--disable_cuda`` runs
 everything on the CPU; without it everything runs on ``cuda`` or raises.
-Flags of parts not ported yet (a ``--mesh_shape`` of more than one
-device, ``--coordinator``) are accepted and refused by the entry points
-that would use them.
+``--coordinator``, ``--num_processes`` and ``--process_id`` make a run
+one rank of several over ``torch.distributed`` (``parallel/``), one
+device a process; a ``--mesh_shape`` names those processes on the
+'data' axis (a 'model' axis above 1 raises).
 """
 
 import argparse
@@ -98,12 +99,12 @@ def build_parser():
                         help="Override the simulator episode step limit "
                              "(0 = simulator default, 500 for nav tasks).")
     parser.add_argument("--coordinator", type=str, default="",
-                        help="Multi-host: 'host:port' of rank 0. Empty = "
-                             "single-host (the only mode ported so far).")
+                        help="Multi-process: 'host:port' of rank 0. "
+                             "Empty = one process.")
     parser.add_argument("--num_processes", type=int, default=1,
-                        help="Multi-host: total process count.")
+                        help="Multi-process: total process count.")
     parser.add_argument("--process_id", type=int, default=0,
-                        help="Multi-host: this process's rank.")
+                        help="Multi-process: this process's rank.")
     parser.add_argument("--data_on_device", type=str, default="auto",
                         choices=["auto", "always", "never"],
                         help="Keep the BC dataset resident in device memory "

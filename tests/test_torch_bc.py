@@ -31,6 +31,7 @@ from pvr_habitat_tpu_torch import main_bc_1, main_bc_2
 from pvr_habitat_tpu_torch import main_test
 from pvr_habitat_tpu_torch.envs import environment
 from pvr_habitat_tpu_torch.models.embedding_net import EmbeddingNet
+from pvr_habitat_tpu_torch.parallel import mesh as pmesh
 from pvr_habitat_tpu_torch.train import bc, evaluate
 from pvr_habitat_tpu_torch.utils import checkpoint as ckpt
 from pvr_habitat_tpu_torch.utils.flags import default_flags
@@ -192,10 +193,15 @@ def test_embed_at_load_imagenav_fused_eval_matches_jax(workdir):
 
 
 def test_unported_options_raise(workdir):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """A mesh of more devices than processes raises with the JAX package's
+    message; a 'model' axis above 1 (tensor parallelism) is not ported and
+    names its ROADMAP item; without CUDA nothing falls back to the CPU."""
+    with pytest.raises(ValueError, match=r"mesh \(2, 1\) != 1 devices"):
         bc.run(_flags(workdir, "x", mesh_shape="2,1"))
+    with pytest.raises(ValueError, match=r"mesh \(3, 3\) != 1 devices"):
+        bc.run(_flags(workdir, "x", mesh_shape="3,3"))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        bc.run(_flags(workdir, "x", coordinator="localhost:1234"))
+        pmesh.make_mesh((1, 2), n_devices=2)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             bc.run(_flags(workdir, "x", disable_cuda=False))

@@ -7,7 +7,7 @@ fuse a quantize without rounding to bf16 first and flip an int8 value).
 Then the CLI, ``save_embedded_obs --source pickle --mesh_shape 1,1
 --disable_pretrained_embedding`` with ``--sharded_embed`` and with
 ``--quantize_embed``, against the JAX CLI's pickles on one FakeNav
-scene, and what still raises."""
+scene, and the meshes one process refuses."""
 
 import shutil
 
@@ -124,19 +124,26 @@ def test_cli_matches_jax(raw_dir, tmp_path, option):
         np.testing.assert_allclose(obs_got, obs_want, atol=1e-3, rtol=1e-3)
 
 
-@pytest.mark.parametrize("args,match", [
-    (["--source", "png"], "png"),
-    (["--source", "pickle", "--mesh_shape", "2,1"], "mesh_shape"),
-    (["--source", "pickle", "--mesh_shape", "2"], "mesh_shape"),
-    (["--source", "pickle", "--coordinator", "localhost:1234"],
-     "coordinator"),
+@pytest.mark.parametrize("args,error,match", [
+    (["--mesh_shape", "2,1"], ValueError, r"mesh \(2, 1\) needs 2 devices"),
+    (["--mesh_shape", "2"], ValueError, r"mesh \(2, 1\) needs 2 devices"),
+    (["--mesh_shape", "1,2"], ValueError, r"mesh \(1, 2\) needs 2 devices"),
+    (["--mesh_shape", "3,3"], ValueError, r"mesh \(3, 3\) needs 9 devices"),
 ])
-def test_cli_refuses_what_is_not_ported(tmp_path, args, match):
+def test_cli_refuses_what_is_not_ported(raw_dir, tmp_path, args, error,
+                                        match):
+    """One process is one device: a mesh of more devices than processes
+    raises (a 'model' axis above 1 raises too, naming its ROADMAP item:
+    ``tests/test_torch_multihost.py``) and nothing is written."""
+    shutil.copy(jformats.raw_path(str(raw_dir), ENV),
+                jformats.raw_path(str(tmp_path), ENV))
     flags = save_embedded_obs.build_tool_parser().parse_args(
         ["--env", ENV, "--data_path", str(tmp_path), "--embedding_name",
-         NAME, "--sharded_embed", "--disable_cuda"] + args)
-    with pytest.raises(NotImplementedError, match=match):
+         NAME, "--source", "pickle", "--sharded_embed", "--disable_cuda",
+         "--disable_pretrained_embedding"] + args)
+    with pytest.raises(error, match=match):
         save_embedded_obs.run(flags)
+    assert not (tmp_path / f"{ENV}_{NAME}.pickle").exists()
 
 
 def test_embedder_and_cli_run_on_the_card_unless_asked(raw_dir):

@@ -4,6 +4,7 @@ imports with jax and the JAX package blocked, and no source of the port
 
 import pkgutil
 import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -14,8 +15,8 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "pvr_habitat_tpu_torch"
 
 
-# The BC trainer, online-eval, encoder-zoo and int8-serving slices: their
-# modules and entry points.
+# The BC trainer, online-eval, encoder-zoo, int8-serving and
+# serving/scale-out slices: their modules and entry points.
 SLICE_MODULES = [f"pvr_habitat_tpu_torch.{name}" for name in (
     "main_bc_1", "main_bc_2", "main_bc_finetune", "main_test",
     "data.embed_pipeline", "ops.quantize",
@@ -24,7 +25,11 @@ SLICE_MODULES = [f"pvr_habitat_tpu_torch.{name}" for name in (
     "envs.fake_nav", "envs.make_env", "envs.wrappers", "data.formats",
     "data.sampler", "models.policy", "ops.lstm", "utils.checkpoint",
     "utils.flags", "utils.profiling", "utils.stats",
-    "tools.save_embedded_obs", "tools.save_opt_trajectories")]
+    "tools.save_embedded_obs", "tools.save_opt_trajectories",
+    "tools.serve_embeddings", "data.native",
+    "tools.save_opt_trajectories_png", "tools.save_opt_trajectories_jpeg",
+    "tools.make_episode_dataset", "tools.gen_all", "parallel.multihost",
+    "parallel.mesh", "parallel.dryrun")]
 
 
 def _modules():
@@ -59,3 +64,28 @@ def test_no_source_imports_the_jax_package():
             in files, name
     offenders = [str(f) for f in files if pattern.search(f.read_text())]
     assert not offenders, offenders
+
+
+def test_no_port_module_writes_under_native(tmp_path):
+    """The codec is built from ``native/image_codec.cpp`` into
+    ``build/codec/``: in a copy of the port and of ``native/``, building
+    it, writing and reading a PNG trajectory leaves ``native/`` as it
+    was."""
+    shutil.copytree(PORT, tmp_path / PORT.name,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copytree(ROOT / "native", tmp_path / "native",
+                    ignore=shutil.ignore_patterns("*.so"))
+    before = sorted(p.name for p in (tmp_path / "native").iterdir())
+    code = ("import numpy as np\n"
+            "from pvr_habitat_tpu_torch.data import formats, native\n"
+            "assert native.available(), native._why\n"
+            "obs = [np.full((64, 64, 6), 7, np.uint8)] * 2\n"
+            "formats.save_png_trajectory('traj', 0, obs, np.zeros(2), "
+            "np.zeros(2), np.zeros(2), np.zeros((2, 12)))\n"
+            "data = formats.read_png_trajectories('traj')\n"
+            "assert (data['obs'] == 7).all()\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert sorted(p.name for p in (tmp_path / "native").iterdir()) == before
+    assert len(list((tmp_path / "build" / "codec").glob("*.so"))) == 1
