@@ -114,7 +114,27 @@ Phases, each fatal on failure:
    ``embed_local`` against one process
    (1e-3) and 5 data-parallel train steps at full width with BatchNorm,
    the ranks bitwise equal and each step against one process from the
-   same state (rtol 1e-3); then the dry run as one rank over NCCL.
+   same state (rtol 1e-3); then the dry run as one rank over NCCL;
+11. slice, sweep, checkpoint conversion, tensor parallelism: (a)
+   ``tools/zoo_checkpoints.py`` writes reference-layout ``moco_aug`` and
+   ``mae_base`` files, ``tools/convert_checkpoint.py`` converts them on
+   the card, and ``EmbeddingNet(compute_dtype=bf16)`` from the converted
+   file answers as the one from the original (pretrained path), equal,
+   with 16 ``fused_bottleneck`` / 12 ``fused_attention`` launches a
+   forward; (b) ``tools/sweep.py`` over one FakeImageNav scene
+   (``SWEEP_GRID``): the embedding sweep, resnet50 (``main_bc_2``) and
+   random (``main_bc_1``) BC jobs and a finetune job through the local
+   executor, each job's launches gated (16 a resnet50 forward), a
+   second seed through ``SubprocessExecutor``, every stats pickle and
+   checkpoint with finite losses, and a second call of each sweep
+   submitting nothing; (c) ``main_bc_2 --mesh_shape 1,2`` on two ranks
+   on the card over gloo at full width with BatchNorm, against one
+   process: losses and pre-clip norms (rtol 1e-4), the checkpoints'
+   keys, shapes and params (1e-4); then each tensor-parallel step from
+   the same state as one process (rtol 1e-4), ms a step beside one
+   process, and the all-gathers' and the sharded inputs' all-reduces'
+   share of it.  The habitat and gym adapters are not installed there:
+   it says so, and the CPU tests hold them on stubs.
 
 The last three lines are the card's name and power limit, one JSON
 object with the kernels' numbers, and the verdict
@@ -226,6 +246,21 @@ SERVE_WINDOW_MS = 2.0
 PNG_TRAJECTORIES = BC_TRAJECTORIES   # PNG datagen of phase 7's data
 RANKS = 2                      # processes on the one card, over gloo
 RANK_EMBED_FRAMES = 256        # frames embed_local splits over the ranks
+# Phase 11, the sweep, checkpoint conversion and tensor parallelism.
+# Conversion: (zoo name, launches a forward of its bf16 card default route).
+CONVERT = [("moco_aug", {"fused_bottleneck": 16}),
+           ("mae_base", {"fused_attention": 12})]
+CONVERT_FRAMES = 8
+# The sweep's one-scene grid (cut: 2 epochs of B 8 x T 20, one eval
+# episode of <= 30 steps a point; the default grid's 35 x 5 x 10 jobs
+# run B 16 x T 100 for up to 2e8 frames).
+SWEEP_ENV = "FakeImageNav-apartment_0"
+SWEEP_TRAJECTORIES = 12
+SWEEP_EPOCHS = 2
+SWEEP_GRID = dict(batch_size=[8], unroll_length=[20], eval_frequency=[1],
+                  n_episodes_test=[1], max_episode_steps=[30])
+TP_STEPS = 5                   # tensor-parallel steps held against one process
+TP_EPISODE_STEPS = 20          # their eval episodes' limit
 # kernel -> (TPU kernel it replaces, CUDA source)
 KERNELS = {
     "fused_bottleneck": (
@@ -1898,6 +1933,332 @@ def ranks_slice(torch, fb, fa, device, smi, workdir):
     return launches
 
 
+def convert_slice(torch, fb, fa, frames, device, smi, workdir):
+    """Phase 11a: ``tools/zoo_checkpoints.py`` writes reference-layout
+    ``moco_aug`` and ``mae_base`` files, the port's ``convert_checkpoint``
+    converts each on the card, and ``EmbeddingNet(compute_dtype=bf16)``
+    built from the converted file (BN folded, as a frozen encoder folds
+    it at build) answers exactly as the one built from the original
+    through the pretrained path, with the launches of ``CONVERT`` a
+    forward.  Returns the launches."""
+    import os
+
+    from pvr_habitat_tpu_torch.models import convert
+    from pvr_habitat_tpu_torch.models.embedding_net import EmbeddingNet
+    from pvr_habitat_tpu_torch.ops.fold_bn import fold_resnet_bn
+    from pvr_habitat_tpu_torch.tools import convert_checkpoint
+    from pvr_habitat_tpu_torch.tools import zoo_checkpoints
+
+    directory = os.path.join(workdir, "convert")
+    os.makedirs(directory)
+    launches = {k: 0 for k in KERNELS}
+    for name, per_forward in CONVERT:
+        start = time.perf_counter()
+        (original,) = zoo_checkpoints.write(name, directory, SEED)
+        out = os.path.join(directory, f"{name}.converted.tar")
+        convert_checkpoint.main(["--embedding_name", name, "--checkpoint",
+                                 original, "--out", out])
+        seconds = time.perf_counter() - start
+        answers = []
+        for source in ("converted", "original"):
+            if source == "converted":
+                net = EmbeddingNet(name, pretrained=False,
+                                   compute_dtype=torch.bfloat16)
+                net.params = fold_resnet_bn(convert.load_flat(out, device))
+            else:
+                net = load_net(EmbeddingNet, name, directory,
+                               compute_dtype=torch.bfloat16)
+            reset_launches(fb, fa)
+            answers.append(net(frames[:CONVERT_FRAMES]))
+            counts = count_launches(fb, fa)
+            want = {k: per_forward.get(k, 0) for k in KERNELS}
+            if counts != want:
+                raise AssertionError(f"{name} from the {source} file: "
+                                     f"launches {counts}, not {want}")
+            for k in KERNELS:
+                launches[k] += counts[k]
+        if not np.array_equal(*answers) or not np.isfinite(answers[0]).all():
+            raise AssertionError(
+                f"{name}: the converted file's answer differs by "
+                f"{np.abs(answers[0] - answers[1]).max()}")
+        print(f"{name}: converted on the card in {seconds:.1f} s (reference "
+              f"file written included); bf16 on route {net.fused} from the "
+              f"converted file and from the original, {CONVERT_FRAMES} "
+              f"frames: equal, shape {answers[0].shape}; launches a forward "
+              f"{counts}", flush=True)
+    return launches
+
+
+class CountingExecutor:
+    """The sweep's ``LocalExecutor`` with every count at 0 before a job;
+    records each job's runner, flags, encoder forwards, launches and
+    seconds."""
+
+    def __init__(self, torch, fb, fa, sweep):
+        self.torch, self.fb, self.fa = torch, fb, fa
+        self.local = sweep.LocalExecutor()
+        self.jobs = []
+
+    def submit(self, fn, flags):
+        from pvr_habitat_tpu_torch.models.embedding_net import EmbeddingNet
+
+        reset_launches(self.fb, self.fa)
+        start = time.perf_counter()
+        with ForwardCounter(self.torch, EmbeddingNet) as forwards:
+            out = quiet(self.local.submit, fn, flags)
+        self.jobs.append(dict(runner=fn.__name__, flags=flags,
+                              forwards=forwards.count,
+                              launches=count_launches(self.fb, self.fa),
+                              seconds=time.perf_counter() - start))
+        return out
+
+
+def sweep_slice(torch, fb, fa, device, smi, workdir):
+    """Phase 11b: the sweep (``tools/sweep.py``) over one FakeImageNav
+    scene: datagen, then the embedding sweep (resnet50 on the raw
+    pickle), a BC grid of resnet50 (``main_bc_2`` on those embeddings)
+    and random (``main_bc_1``, embedding at load), and a finetune grid,
+    each job in this process through the sweep's local executor, its
+    launches gated (16 ``fused_bottleneck`` a resnet50 forward, none
+    elsewhere); then a second seed of the resnet50 job through
+    ``SubprocessExecutor`` (the port's ``main_bc_2`` as a process, seed
+    1 skipped as completed); every job's stats pickle and checkpoint,
+    finite losses; and a second call of each sweep submits nothing.
+    Returns the in-process jobs' launches."""
+    import os
+
+    from pvr_habitat_tpu_torch.data import formats
+    from pvr_habitat_tpu_torch.tools import save_opt_trajectories, sweep
+
+    data = os.path.join(workdir, "sweep_data")
+    save = os.path.join(workdir, "sweep", "latest")
+    flags = save_opt_trajectories.build_tool_parser().parse_args(
+        ["--env", SWEEP_ENV, "--save_path", data, "--n_trajectories",
+         str(SWEEP_TRAJECTORIES)])
+    start = time.perf_counter()
+    quiet(save_opt_trajectories.gen_data_habitat, flags)
+    print(f"sweep datagen: {SWEEP_TRAJECTORIES} {SWEEP_ENV} trajectories "
+          f"in {time.perf_counter() - start:.1f} s", flush=True)
+    executor = CountingExecutor(torch, fb, fa, sweep)
+    embed = dict(env=[SWEEP_ENV], embedding_name=["resnet50"],
+                 batch_size=[32])
+    grid = dict(env=[SWEEP_ENV], to_env=[SWEEP_ENV],
+                embedding_name=["resnet50", "random"], run_id=[1],
+                save_path=[save], data_path=[data], **SWEEP_GRID)
+    frames = {SWEEP_ENV: SWEEP_EPOCHS * SWEEP_GRID["batch_size"][0]
+              * SWEEP_GRID["unroll_length"][0]}
+    finetune = dict(grid, embedding_name=["random"])
+    seeds = dict(grid, embedding_name=["resnet50"], run_id=[1, 2])
+    calls = [
+        ("embedding sweep", 1, lambda ex: sweep.run_embedding_sweep(
+            embed, ex, data_path=data)),
+        ("BC sweep", 2, lambda ex: sweep.run_bc_sweep(
+            grid, ex, max_frames_map=frames)),
+        ("finetune sweep", 1, lambda ex: sweep.run_bc_sweep(
+            finetune, ex, max_frames_map=frames, finetune=True))]
+    for label, n_jobs, call in calls:
+        if len(call(executor)) != n_jobs:
+            raise AssertionError(f"{label}: jobs {executor.jobs}")
+    launches = {k: 0 for k in KERNELS}
+    for job in executor.jobs:
+        name = job["flags"].embedding_name
+        want = {k: 0 for k in KERNELS}
+        if name == "resnet50":
+            want["fused_bottleneck"] = 16 * job["forwards"]
+        if job["launches"] != want or (job["runner"] != "runner_finetune"
+                                       and not job["forwards"]):
+            raise AssertionError(f"sweep job {job['runner']} {name}: "
+                                 f"{job['forwards']} forwards, launches "
+                                 f"{job['launches']}")
+        for k in KERNELS:
+            launches[k] += job["launches"][k]
+        print(f"sweep job {job['runner']} ({name}, xpid "
+              f"{job['flags'].xpid}): {job['forwards']} "
+              f"encoder forwards, launches {job['launches']}, "
+              f"{job['seconds']:.1f} s", flush=True)
+    start = time.perf_counter()
+    if sweep.run_bc_sweep(seeds, sweep.SubprocessExecutor(),
+                          max_frames_map=frames) != ["subprocess:0"]:
+        raise AssertionError("the subprocess job failed")
+    print(f"sweep job through SubprocessExecutor (python -m "
+          f"pvr_habitat_tpu_torch.main_bc_2, resnet50, seed 2; seed 1 "
+          f"skipped as completed): {time.perf_counter() - start:.1f} s",
+          flush=True)
+
+    stems = [f"{SWEEP_ENV}_em{e}_s{s}_{SWEEP_ENV}" for e, s in (
+        ("resnet50", 1), ("resnet50", 2), ("random", 1),
+        ("random_finetuned", 1))]
+    for stem in stems:
+        path = os.path.join(save, stem)
+        if not all(os.path.isfile(path + ext) for ext in (".pickle", ".tar")):
+            raise AssertionError(f"sweep job {stem}: {os.listdir(save)}")
+        losses = formats.load_pickle(path + ".pickle")[SWEEP_ENV][
+            "training_loss"][1:]
+        if len(losses) != SWEEP_EPOCHS or not np.isfinite(losses).all():
+            raise AssertionError(f"sweep job {stem}: losses {losses}")
+    rerun = [call(sweep.LocalExecutor()) for _, _, call in calls] + [
+        sweep.run_bc_sweep(seeds, sweep.SubprocessExecutor(),
+                           max_frames_map=frames)]
+    if any(rerun):
+        raise AssertionError(f"a second sweep submitted {rerun}")
+    print(f"sweep outputs: {len(stems)} runs with stats and checkpoint, "
+          f"{SWEEP_EPOCHS} finite losses each, and the embedded pickle; a "
+          "second call of each sweep submitted nothing", flush=True)
+    return launches
+
+
+def tensor_parallel_slice(torch, fb, fa, device, smi, workdir):
+    """Phase 11c: tensor parallelism of the policy on a (1, 2) mesh, two
+    ranks on the one card over gloo (``parallel/dryrun.py``), at full
+    width with BatchNorm (B 32, T 100, obs 2048, phase 7's ResNet-50
+    embeddings).  (1) ``main_bc_2 --mesh_shape 1,2`` (the ``train``
+    task, ``TP_STEPS`` steps, eval after each on the gathered params)
+    beside the same run in one process: the losses and pre-clip norms,
+    and the checkpoints (keys, shapes, params within 1e-4).  (2) The
+    ``steps`` task on the same mesh: each step against one process from
+    the same state (rtol 1e-4), ms a step beside one process, and a
+    step's all-gathers and sharded inputs' all-reduces alone.  Returns
+    the one-process run's launches (the ranks count theirs in their own
+    processes)."""
+    import os
+    import shlex
+
+    from pvr_habitat_tpu_torch.data import formats, sampler
+    from pvr_habitat_tpu_torch.models.embedding_net import EmbeddingNet
+    from pvr_habitat_tpu_torch.parallel import dryrun
+    from pvr_habitat_tpu_torch.train import bc, bc_step
+    from pvr_habitat_tpu_torch.utils import checkpoint as ckpt
+    from pvr_habitat_tpu_torch.utils.flags import default_flags
+
+    threads = {"OMP_NUM_THREADS": str(max(1, torch.get_num_threads()
+                                          // RANKS))}
+    fl = default_flags(batch_norm=True)
+    b, t = fl.batch_size, fl.unroll_length
+    kw = dict(env=BC_ENV, to_env=BC_ENV, embedding_name="resnet50",
+              data_path=workdir, eval_frequency=1, n_episodes_test=1,
+              max_episode_steps=TP_EPISODE_STEPS,
+              max_frames=TP_STEPS * b * t)
+    mesh_dir = os.path.join(workdir, "tp_mesh")
+    one_dir = os.path.join(workdir, "tp_one")
+    bc_flags = " ".join(f"--{k} {shlex.quote(str(v))}"
+                        for k, v in kw.items())
+    bc_flags += f" --batch_norm --mesh_shape 1,2 --save_path {mesh_dir}"
+    prefix = os.path.join(workdir, "tp_train")
+    start = time.perf_counter()
+    logs = dryrun.launch(RANKS, ["train", "--device", device.type, "--out",
+                                 prefix, "--bc_flags", bc_flags],
+                         timeout=600, env=threads)
+    mesh_s = time.perf_counter() - start
+    backends = {line for log in logs for line in log.splitlines()
+                if line.startswith("torch.distributed:")}
+    if not all("tensor parallel: 2 ranks a row" in log for log in logs):
+        raise AssertionError(f"no tensor-parallel trainer:\n{logs[0]}")
+    ranks = [np.load(f"{prefix}{r}.npz") for r in range(RANKS)]
+    for r in ranks[1:]:
+        for key in ("loss", "gnorm", "ret"):
+            if not np.array_equal(r[key], ranks[0][key], equal_nan=True):
+                raise AssertionError(f"the ranks differ in {key}")
+    reset_launches(fb, fa)
+    start = time.perf_counter()
+    with ForwardCounter(torch, EmbeddingNet) as forwards:
+        one = quiet(bc.run, default_flags(**kw, batch_norm=True,
+                                          save_path=one_dir))[BC_ENV]
+    one_s = time.perf_counter() - start
+    launches = count_launches(fb, fa)
+    if launches["fused_bottleneck"] != 16 * forwards.count \
+            or not forwards.count:
+        raise AssertionError(f"one-process run: launches {launches}, "
+                             f"{forwards.count} forwards")
+    got = np.stack([ranks[0]["loss"][1:], ranks[0]["gnorm"][1:]], axis=1)
+    want = np.stack([one["training_loss"][1:], one["gradient_norm"][1:]],
+                    axis=1)
+    if got.shape != (TP_STEPS, 2) or not np.isfinite(got).all():
+        raise AssertionError(f"mesh run: {got}")
+    free_rel = np.abs(got / want - 1)
+    stem = f"{BC_ENV}_emresnet50_s1_{BC_ENV}"
+    files = [ckpt.load_checkpoint(os.path.join(d, stem + ".tar"))
+             for d in (mesh_dir, one_dir)]
+    trees = [(f["actor_model_state_dict"],
+              f["actor_model_optimizer_state_dict"]["square_avg"])
+             for f in files]
+    for mesh_tree, one_tree in zip(*trees):
+        if {k: v.shape for k, v in mesh_tree.items()} != \
+                {k: v.shape for k, v in one_tree.items()}:
+            raise AssertionError("the mesh's checkpoint has other keys or "
+                                 "shapes than one process's")
+    param_err = max(float(np.abs(trees[0][0][k] - v).max())
+                    for k, v in trees[1][0].items())
+    print(f"main_bc_2 --mesh_shape 1,2 on {RANKS} ranks ({TP_STEPS} steps, "
+          f"B {b}, T {t}, obs 2048, batch_norm, eval after each on the "
+          f"gathered params) in {mesh_s:.1f} s (process starts included), "
+          f"one process {one_s:.1f} s ({forwards.count} encoder forwards, "
+          f"launches {launches}); the ranks equal; free-running against one "
+          f"process: losses {got[:, 0].tolist()} vs "
+          f"{want[:, 0].tolist()}, rel err per step loss "
+          f"{[float(f'{x:.3g}') for x in free_rel[:, 0]]}, gradient norm "
+          f"{[float(f'{x:.3g}') for x in free_rel[:, 1]]}; checkpoints: "
+          f"same keys and shapes, params max abs err {param_err:.3g} "
+          f"(1e-4); {sorted(backends)}", flush=True)
+
+    # (2) each step from the same state, times, and the collectives alone
+    prefix = os.path.join(workdir, "tp_steps")
+    snapshots = os.path.join(workdir, "tp_snapshots")
+    os.makedirs(snapshots)
+    data_path = formats.embedded_path(workdir, BC_ENV, "resnet50")
+    dryrun.launch(RANKS, ["steps", "--device", device.type, "--data",
+                          data_path, "--snapshots", snapshots, "--out",
+                          prefix, "--mesh_shape", "1,2"],
+                  timeout=600, env=threads)
+    ranks = [np.load(f"{prefix}{r}.npz") for r in range(RANKS)]
+    if not np.array_equal(ranks[1]["metrics"], ranks[0]["metrics"]):
+        raise AssertionError("the ranks' steps differ")
+    data = formats.load_pickle(data_path)
+    tensors = sampler.to_tensors(dict(
+        obs=data["obs"].astype(np.float32),
+        action=data["action"].astype(np.int64),
+        done=data["done"].astype(bool)), device)
+    _, opt = bc_step.create_train_state(
+        np.random.RandomState(SEED), (data["obs"].shape[1],), 3, fl,
+        max_epochs=100, device=device)
+    step = bc_step.make_train_step(opt, batch_norm=True)
+    starts = [row.tolist() for row in ranks[0]["starts"]]
+    single = []
+    for k, row in enumerate(starts):
+        path = os.path.join(snapshots, f"step_{k}.pt")
+        state = dryrun.restore(torch.load(path, weights_only=False), device)
+        os.remove(path)
+        state, m = step(state, sampler.gather_unrolls(tensors, row, t))
+        single.append([m["loss"].item(), m["gradient_norm"].item()])
+    single = np.asarray(single)
+    np.testing.assert_allclose(ranks[0]["metrics"], single, rtol=1e-4)
+    rel = np.abs(ranks[0]["metrics"] / single - 1).max(axis=0)
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    for row in starts:
+        state, m = step(state, sampler.gather_unrolls(tensors, row, t))
+    m["loss"].item()
+    torch.cuda.synchronize()
+    n = len(starts)
+    one_ms = (time.perf_counter() - start) / n * 1e3
+    tp_ms, gather_ms, input_ms = (
+        max(float(r[key]) for r in ranks) / n * 1e3
+        for key in ("seconds", "gather_seconds", "input_reduce_seconds"))
+    print(f"{n} tensor-parallel train steps on the (1, 2) mesh (B {b}, T "
+          f"{t}, obs {data['obs'].shape[1]}, batch_norm), each from the same "
+          f"state as one process: max rel err loss {rel[0]:.3g}, gradient "
+          f"norm {rel[1]:.3g} (rtol 1e-4); {tp_ms:.1f} ms a step over "
+          f"{RANKS} ranks against {one_ms:.1f} in one process; a step's "
+          f"{2 + 2 * t} all-gathers alone {gather_ms:.1f} ms "
+          f"({gather_ms / tp_ms:.1%} of the step), its {2 + 4 * t} sharded "
+          f"inputs' gradient all-reduces alone {input_ms:.1f} ms "
+          f"({input_ms / tp_ms:.1%}) [{smi}]", flush=True)
+    # (1)'s gates, after (2) has printed its numbers
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    if param_err > 1e-4:
+        raise AssertionError(f"checkpoint params differ by {param_err}")
+    return launches
+
+
 def main():
     import torch
 
@@ -2062,6 +2423,27 @@ def main():
             for k in KERNELS:
                 launches[k] += counts[k]
             print(f"part {time.perf_counter() - start:.1f} s", flush=True)
+        print(f"slice phase {time.perf_counter() - t0:.1f} s")
+
+        t0 = phase("11 slice: sweep, checkpoint conversion, tensor "
+                   "parallelism")
+        for part in (
+                lambda: convert_slice(torch, fb, fa, frames, device, smi,
+                                      workdir.name),
+                lambda: sweep_slice(torch, fb, fa, device, smi,
+                                    workdir.name),
+                lambda: tensor_parallel_slice(torch, fb, fa, device, smi,
+                                              workdir.name)):
+            start = time.perf_counter()
+            counts = part()
+            for k in KERNELS:
+                launches[k] += counts[k]
+            print(f"part {time.perf_counter() - start:.1f} s", flush=True)
+        print("the habitat and gym adapters (envs/habitat_adapter.py, "
+              "envs/gym_adapter.py) do not run here: neither habitat nor "
+              "gym is installed on this machine; the CPU tests hold them "
+              "against the JAX package's on stubs "
+              "(tests/test_torch_adapters.py)", flush=True)
         print(f"slice phase {time.perf_counter() - t0:.1f} s")
 
     line = {"kernels": [{

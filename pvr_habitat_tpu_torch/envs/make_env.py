@@ -2,14 +2,15 @@
 reference: src/gym_wrappers.py:35-90).
 
 Routes env-name strings:
-  'FakeImageNav-<scene>' / 'FakePointNav-<scene>'
-      -> the hermetic FakeNav simulator.
   'HabitatImageNav-<scene>' / 'HabitatPointNav-<scene>'
-      -> FakeNav with identical wrapper semantics while habitat-sim is
-         not installed.  The habitat adapter is not ported yet, so an
-         installed habitat raises instead of being ignored.
+      -> habitat-sim when installed (``envs/habitat_adapter.py``), else
+         the hermetic FakeNav simulator with identical wrapper semantics
+         (with a warning).
+  'FakeImageNav-<scene>' / 'FakePointNav-<scene>'
+      -> FakeNav explicitly.
   'Atari-<id>' / 'MiniGrid<id>'
-      -> not ported yet; raises.
+      -> gym adapters (``envs/gym_adapter.py``), available only when gym
+         is installed.
 Then: seed, EmbeddingWrapper (unless true_state), FrameStack.
 """
 
@@ -17,8 +18,6 @@ from pvr_habitat_tpu_torch.envs.fake_nav import FakeNavSim
 from pvr_habitat_tpu_torch.envs.wrappers import (EmbeddingWrapper,
                                                  FrameStack,
                                                  NavigationWrapper)
-
-ADAPTERS_ITEM = "ROADMAP.md queue 1, item 2"
 
 
 def _habitat_available():
@@ -38,26 +37,26 @@ def make_gym_env(flags, embedding_model=None, seed=0):
         assert len(scene) > 0, "Undefined scene."
         image_goal = "ImageNav" in env_name
         true_state = embedding_name == "true_state"
-        if "Habitat" in env_name:
-            if _habitat_available():
-                raise NotImplementedError(
-                    f"'{env_name}': habitat-sim is installed but its "
-                    f"adapter is not ported yet ({ADAPTERS_ITEM})")
-            import warnings
+        if "Habitat" in env_name and _habitat_available():
+            from pvr_habitat_tpu_torch.envs.habitat_adapter import \
+                make_habitat_sim
+            sim = make_habitat_sim(scene, seed=seed)
+        else:
+            if "Habitat" in env_name:
+                import warnings
 
-            warnings.warn(
-                f"habitat-sim not installed; '{env_name}' runs on the "
-                "hermetic FakeNav simulator")
-        max_steps = getattr(flags, "max_episode_steps", 0)
-        sim = FakeNavSim(scene, seed=seed,
-                         **({"max_episode_steps": max_steps}
-                            if max_steps else {}))
+                warnings.warn(
+                    f"habitat-sim not installed; '{env_name}' runs on the "
+                    "hermetic FakeNav simulator")
+            max_steps = getattr(flags, "max_episode_steps", 0)
+            sim = FakeNavSim(scene, seed=seed,
+                             **({"max_episode_steps": max_steps}
+                                if max_steps else {}))
         env = NavigationWrapper(sim, scene, image_goal=image_goal,
                                 true_state=true_state, seed=seed)
     elif "Atari" in env_name or "MiniGrid" in env_name:
-        raise NotImplementedError(
-            f"'{env_name}': the gym adapter is not ported yet "
-            f"({ADAPTERS_ITEM})")
+        from pvr_habitat_tpu_torch.envs.gym_adapter import make_gym_adapter
+        env = make_gym_adapter(env_name)
     else:
         raise NotImplementedError(f"unknown environment: {env_name}")
 

@@ -20,6 +20,13 @@ LSTM params: core.weight_ih_l{0,1} etc.  Heads: policy.*, baseline.*.
 Model state is split into ``params`` (trained) and ``batch_stats``
 (BatchNorm running mean/var, returned updated in train mode), so the
 train step stays functional: flat dicts of tensors in, new dicts out.
+
+On a mesh of ranks (``mesh``, ``parallel/mesh.py``) the batch is this
+rank's columns of a global batch split over 'data', and train-mode
+BatchNorm takes the global batch's statistics; over 'model', ``params``
+holds this rank's rows of the sharded weights (``policy_param_spec``):
+the two fc products and the LSTM gates are computed on those rows and
+gathered, and a replicated fc bias is added after the gather.
 """
 
 import math
@@ -140,14 +147,14 @@ def initial_state(batch_size, device=None):
 # -----------------------------------------------------------------------------
 
 
-def _batch_norm_1d(x, params, batch_stats, train, sync=False):
+def _batch_norm_1d(x, params, batch_stats, train, mesh=None):
     """Train mode normalises with the biased batch variance and moves the
     running variance with the unbiased one, as torch's BatchNorm1d does.
-    ``sync``: the batch is sharded over the ranks of ``torch.distributed``
-    in equal parts, and the statistics are the global batch's (the sums
-    of x and of (x - mean)^2 over every rank), as the JAX package
-    computes them over a sharded batch; gradients flow through the sums
-    to every rank."""
+    On a mesh with a 'data' axis the batch is sharded over the ranks of
+    the data group in equal parts, and the statistics are the global
+    batch's (the sums of x and of (x - mean)^2 over those ranks), as the
+    JAX package computes them over a sharded batch; gradients flow
+    through the sums to every rank."""
     gamma = params["fc.0.weight"]
     beta = params["fc.0.bias"]
     if not train:
@@ -155,11 +162,12 @@ def _batch_norm_1d(x, params, batch_stats, train, sync=False):
         var = batch_stats["fc.0.running_var"]
         x = (x - mean) * torch.rsqrt(var + BN_EPS) * gamma + beta
         return x, batch_stats
-    if sync:
-        n = x.shape[0] * multihost.world()[0]
-        mean = multihost.all_reduce_sum_differentiable(x.sum(dim=0)) / n
+    if mesh is not None and mesh.data > 1:
+        n = x.shape[0] * mesh.data
+        mean = multihost.all_reduce_sum_differentiable(
+            x.sum(dim=0), mesh.data_group) / n
         var = multihost.all_reduce_sum_differentiable(
-            ((x - mean) ** 2).sum(dim=0)) / n
+            ((x - mean) ** 2).sum(dim=0), mesh.data_group) / n
     else:
         n = x.shape[0]
         mean = x.mean(dim=0)
@@ -176,16 +184,30 @@ def _batch_norm_1d(x, params, batch_stats, train, sync=False):
     return x, new_stats
 
 
+def _linear(x, params, prefix, model_group):
+    """``cm.linear``; with ``model_group``, on this rank's rows of the
+    weight, gathered, then the whole bias."""
+    if model_group is None:
+        return cm.linear(x, params, prefix)
+    y = multihost.copy_to_shards(x, model_group) \
+        @ params[f"{prefix}.weight"].T
+    return multihost.gather_columns(y, model_group) \
+        + params[f"{prefix}.bias"]
+
+
 def _trunk_to_outputs(x, params, done, core_state, fc0, t, b, train,
-                      generator):
+                      generator, mesh):
     """Shared tail: the two ReLU linears, the LSTM unroll, the heads and
     the action choice."""
-    x = torch.relu(cm.linear(x, params, f"fc.{fc0}"))
-    x = torch.relu(cm.linear(x, params, f"fc.{fc0 + 2}"))
+    group = mesh.model_group if mesh is not None and mesh.model > 1 \
+        else None
+    x = torch.relu(_linear(x, params, f"fc.{fc0}", group))
+    x = torch.relu(_linear(x, params, f"fc.{fc0 + 2}", group))
     notdone = 1.0 - done.float()
     layers = stack_lstm_params(params, "core", LSTM_LAYERS)
     core_out, new_state = lstm_scan(layers, x.reshape(t, b, HIDDEN),
-                                    core_state[0], core_state[1], notdone)
+                                    core_state[0], core_state[1], notdone,
+                                    group)
     flat = core_out.reshape(t * b, HIDDEN)
     logits = cm.linear(flat, params, "policy")
     baseline = cm.linear(flat, params, "baseline")
@@ -203,15 +225,14 @@ def _trunk_to_outputs(x, params, done, core_state, fc0, t, b, train,
 
 
 def apply_policy(params, batch_stats, inputs, core_state, *, batch_norm=False,
-                 train=False, generator=None, sync_batch_stats=False):
+                 train=False, generator=None, mesh=None):
     """PolicyNet forward.
 
     inputs: dict(obs=(T, B, O) float, done=(T, B) bool-ish).
     ``generator`` (a ``torch.Generator`` on the params' device) draws the
     train-mode actions, sampled from the logits as the reference does;
-    eval mode takes the argmax.  ``sync_batch_stats``: B is this rank's
-    share of a batch sharded over the ranks, and train-mode BatchNorm
-    takes the global batch's statistics.
+    eval mode takes the argmax.  ``mesh``: this rank's place on a mesh
+    of ranks (see the module docstring), or None for one process.
     Returns (outputs, new_core_state, new_batch_stats).
     """
     obs, done = inputs["obs"], inputs["done"]
@@ -222,16 +243,16 @@ def apply_policy(params, batch_stats, inputs, core_state, *, batch_norm=False,
     fc0 = 0
     if batch_norm:
         x, new_stats = _batch_norm_1d(x, params, batch_stats, train,
-                                      sync_batch_stats)
+                                      mesh)
         fc0 = 1
     outputs, new_state = _trunk_to_outputs(x, params, done, core_state, fc0,
-                                           t, b, train, generator)
+                                           t, b, train, generator, mesh)
     return outputs, new_state, new_stats
 
 
 def apply_conv_policy(params, batch_stats, inputs, core_state, *,
                       batch_norm=False, train=False, generator=None,
-                      sync_batch_stats=False):
+                      mesh=None):
     """PolicyNetWithConv forward over raw pixels.
 
     inputs: dict(obs=(T, B, H, W, C*n) uint8 or float, done=(T, B)).
@@ -256,8 +277,8 @@ def apply_conv_policy(params, batch_stats, inputs, core_state, *,
     fc0 = 0
     if batch_norm:
         x, new_stats = _batch_norm_1d(x, params, batch_stats, train,
-                                      sync_batch_stats)
+                                      mesh)
         fc0 = 1
     outputs, new_state = _trunk_to_outputs(x, params, done, core_state, fc0,
-                                           t, b, train, generator)
+                                           t, b, train, generator, mesh)
     return outputs, new_state, new_stats

@@ -1,5 +1,5 @@
 """Multi-process runs over ``torch.distributed`` (counterpart of
-``__graft_entry__.py::dryrun_multichip``, on a data-only mesh).
+``__graft_entry__.py::dryrun_multichip``).
 
 ``launch(n, args)`` starts n processes of this module on one host,
 each a rank of one group (``tcp://localhost:<free port>``), waits for
@@ -7,11 +7,12 @@ them within a time limit and returns their outputs; a rank that fails or
 outlives the limit fails the launch, and no rank is left running.  Each
 rank runs one task:
 
-- ``multichip``: the dry run.  One BC train step with BatchNorm on a
-  tiny batch sharded over the ranks, for the MLP and the conv policy,
-  against the same step on the whole batch in one process
-  (``data_parallel=False``, computed by each rank alone), and the ranks'
-  new params bitwise equal; then the bulk
+- ``multichip``: the dry run, on the JAX dry run's mesh ((n/2, 2) for an
+  even n >= 4, else (n, 1)).  One BC train step with BatchNorm on a
+  tiny batch sharded over 'data' (the policy's weights over 'model'),
+  for the MLP and the conv policy, against the same step on the whole
+  batch in one process (``mesh=None``, computed by each rank alone),
+  and the ranks' gathered new params bitwise equal; then the bulk
   embedder (``random`` encoder) over each rank's ``process_slice`` of
   some frames, gathered, against ``embed_all`` of all of them.
 - ``embed``: ``ShardedEmbedder.embed_local`` over this rank's slice of
@@ -22,14 +23,18 @@ rank runs one task:
   rank's ``--coordinator`` flags, so that the trainer picks its device
   and joins the group as its CLI does; writes ``<out><rank>.npz``
   (losses, gradient norms, returns).
-- ``steps``: ``STEPS`` data-parallel train steps of the policy with
-  BatchNorm at the default batch (B 32, T 100) on the embeddings of a
-  pickle; before each step rank 0 saves the
-  state to ``<snapshots>/step_<k>.pt``, so that one process can take the
-  same step from the same state on the whole batch; then the same steps
-  again, timed, and as many all-reduces of the gradients' size
-  alone; writes ``<out><rank>.npz`` (each step's loss and gradient norm,
-  the starts, the timed steps' and all-reduces' seconds).
+- ``steps``: ``STEPS`` train steps of the policy with BatchNorm at the
+  default batch (B 32, T 100) on the embeddings of a pickle, on the
+  ``--mesh_shape`` mesh (default: every rank on 'data'); before each
+  step rank 0 saves the whole state (gathered over the model group) to
+  ``<snapshots>/step_<k>.pt``, so that one process can take the same
+  step from the same state on the whole batch; then the same steps
+  again, timed, and the collectives of a step alone, as many times: the
+  gradients' all-reduce over the data group and, with a 'model' axis,
+  the sharded products' all-gathers and their inputs' gradient
+  all-reduces over the model group; writes ``<out><rank>.npz`` (each
+  step's loss and gradient norm, the starts, the seconds of the timed
+  steps and of each collective).
 
 The ranks run on the card unless ``--device cpu`` asks for the CPU
 (without CUDA they raise):
@@ -113,15 +118,16 @@ def dryrun_multichip(n_devices=2, timeout=300.0):
 def _multichip(args, device):
     from pvr_habitat_tpu_torch.data.embed_pipeline import ShardedEmbedder
     from pvr_habitat_tpu_torch.parallel import mesh as pmesh
-    from pvr_habitat_tpu_torch.train import bc_step
+    from pvr_habitat_tpu_torch.train import bc, bc_step
     from pvr_habitat_tpu_torch.utils.flags import default_flags
 
     size, rank = multihost.world()
-    mesh = pmesh.make_mesh()
+    mesh = pmesh.make_mesh((size // 2, 2) if size % 2 == 0 and size >= 4
+                           else (size, 1))
     t, b, num_actions = 4, 2 * size, 3
     flags = default_flags(learning_rate=1e-3, batch_norm=True)
     rng = np.random.RandomState(1)
-    cols = slice(rank * b // size, (rank + 1) * b // size)
+    cols = bc.data_columns(b, mesh)
     # the MLP policy on embeddings; the conv policy on frames, whose
     # BatchNorm statistics depend on the params (a backward through the
     # sums over the ranks)
@@ -134,18 +140,22 @@ def _multichip(args, device):
                      done=torch.from_numpy(rng.rand(t, b) < 0.2))
         batch = {k: v.to(device) for k, v in batch.items()}
 
-        def step(data_parallel, part):
+        def step(step_mesh, part):
             state, opt = bc_step.create_train_state(
                 np.random.RandomState(0), obs.shape[2:], num_actions,
                 flags, conv_policy=conv_policy, max_epochs=100,
                 device=device)
             fn = bc_step.make_train_step(opt, batch_norm=True,
                                          conv_policy=conv_policy,
-                                         data_parallel=data_parallel)
-            return fn(state, {k: v[:, part] for k, v in batch.items()})
+                                         mesh=step_mesh)
+            if step_mesh is None:
+                return fn(state, {k: v[:, part] for k, v in batch.items()})
+            state, metrics = fn(bc_step.shard_state(step_mesh, state),
+                                {k: v[:, part] for k, v in batch.items()})
+            return bc_step.gather_state(step_mesh, state), metrics
 
-        state, metrics = step(True, cols)
-        want_state, want = step(False, slice(None))
+        state, metrics = step(mesh, cols)
+        want_state, want = step(None, slice(None))
         for key in ("loss", "gradient_norm"):
             torch.testing.assert_close(metrics[key], want[key], rtol=1e-5,
                                        atol=1e-6)
@@ -232,14 +242,16 @@ def _train(args):
 
 def _steps(args, device):
     from pvr_habitat_tpu_torch.data import formats, sampler
+    from pvr_habitat_tpu_torch.models import policy
     from pvr_habitat_tpu_torch.parallel import mesh as pmesh
     from pvr_habitat_tpu_torch.train import bc, bc_step
     from pvr_habitat_tpu_torch.utils.flags import default_flags
 
-    size, rank = multihost.world()
+    rank = multihost.world()[1]
+    mesh = pmesh.make_mesh(pmesh.parse_mesh_shape(args.mesh_shape))
     flags = default_flags(batch_norm=True)
     b, t = flags.batch_size, flags.unroll_length
-    cols = bc.data_columns(b, pmesh.make_mesh())
+    cols = bc.data_columns(b, mesh)
     data = formats.load_pickle(args.data)
     n = len(data["action"])
     tensors = sampler.to_tensors(dict(
@@ -252,12 +264,13 @@ def _steps(args, device):
     state, opt = bc_step.create_train_state(
         np.random.RandomState(SEED), (data["obs"].shape[1],), 3, flags,
         max_epochs=100, device=device)
-    step = bc_step.make_train_step(opt, batch_norm=True,
-                                   data_parallel=size > 1)
+    state = bc_step.shard_state(mesh, state)
+    step = bc_step.make_train_step(opt, batch_norm=True, mesh=mesh)
     metrics = []
     for k, row in enumerate(starts):
+        whole = bc_step.gather_state(mesh, state)
         if rank == 0:
-            torch.save(snapshot(state), os.path.join(args.snapshots,
+            torch.save(snapshot(whole), os.path.join(args.snapshots,
                                                      f"step_{k}.pt"))
         state, m = step(state, sampler.gather_unrolls(tensors, row[cols], t))
         metrics.append([m["loss"].item(), m["gradient_norm"].item()])
@@ -269,22 +282,47 @@ def _steps(args, device):
     m["loss"].item()
     _sync(device)
     seconds = time.perf_counter() - start
-    # and the gradient all-reduce alone, as many times
-    flat = torch.zeros(sum(v.numel() for v in state.params.values()) + 1,
-                       device=device)
-    _sync(device)
-    start = time.perf_counter()
-    for _ in starts:
-        multihost.all_reduce_sum(flat)
-    _sync(device)
-    reduce_seconds = time.perf_counter() - start
+    # and a step's collectives alone, as many times: the gradients'
+    # all-reduce (over the data group), and on a 'model' axis the
+    # all-gathers of the two fc products and of the gates (2 layers, T
+    # steps) and the all-reduces of their inputs' gradients (obs and
+    # the first fc's output; x and h of each layer and step)
+    rows, width = (b // mesh.data) * t, policy.HIDDEN // mesh.model
+    reduce_numel = sum(v.numel() for v in state.params.values()) + 1
+    gathers = [(rows, width)] * 2 + [(b // mesh.data, 4 * width)] * (2 * t)
+    inputs = [(rows, data["obs"].shape[1]), (rows, policy.HIDDEN)] \
+        + [(b // mesh.data, policy.HIDDEN)] * (4 * t)
+    reduce_s = _time_collective(
+        multihost.all_reduce_sum, mesh.data_group,
+        [(reduce_numel,)] if mesh.data > 1 else [], len(starts), device)
+    model = mesh.model > 1
+    gather_s = _time_collective(multihost.all_gather_cat, mesh.model_group,
+                                gathers if model else [], len(starts), device)
+    input_s = _time_collective(multihost.all_reduce_sum, mesh.model_group,
+                               inputs if model else [], len(starts), device)
     np.savez(f"{args.out}{rank}.npz", metrics=np.asarray(metrics),
              starts=np.asarray(starts), seconds=seconds,
-             reduce_seconds=reduce_seconds, reduce_numel=flat.numel())
-    print(f"rank {rank}: {STEPS} steps on columns [{cols.start}, "
-          f"{cols.stop}), losses {[m[0] for m in metrics]}; then "
-          f"{STEPS} more in {seconds:.3f} s, and {STEPS} all-reduces of "
-          f"the gradients alone in {reduce_seconds:.3f} s", flush=True)
+             reduce_seconds=reduce_s, reduce_numel=reduce_numel,
+             gather_seconds=gather_s, input_reduce_seconds=input_s)
+    print(f"rank {rank}: mesh {mesh.shape}, {STEPS} steps on columns "
+          f"[{cols.start}, {cols.stop}), losses {[m[0] for m in metrics]}; "
+          f"then {STEPS} more in {seconds:.3f} s; a step's collectives "
+          f"alone, {STEPS} times: the gradients' all-reduce {reduce_s:.3f} "
+          f"s, the all-gathers {gather_s:.3f} s, the sharded inputs' "
+          f"all-reduces {input_s:.3f} s", flush=True)
+
+
+def _time_collective(fn, group, shapes, repeat, device):
+    """Seconds of ``repeat`` rounds of ``fn(buffer, group)`` over zero
+    buffers of ``shapes``."""
+    buffers = [torch.zeros(shape, device=device) for shape in shapes]
+    _sync(device)
+    start = time.perf_counter()
+    for _ in range(repeat):
+        for buf in buffers:
+            fn(buf, group)
+    _sync(device)
+    return time.perf_counter() - start
 
 
 def _sync(device):
@@ -342,6 +380,8 @@ def _parser():
                         help="The train task's BC flags, as one string.")
     parser.add_argument("--data", default="")
     parser.add_argument("--snapshots", default="")
+    parser.add_argument("--mesh_shape", default="",
+                        help="The steps task's mesh, 'data,model'.")
     return parser
 
 

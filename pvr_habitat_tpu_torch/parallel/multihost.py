@@ -6,7 +6,13 @@ joins one group (``--coordinator host:port --num_processes N
 --process_id i`` on the CLI entry points, through ``session``); each
 touches only its slice of the input (``process_slice``), and the slices
 come together by an all-gather of ragged rows (``allgather_rows``).  One
-process is one device: its card, or the CPU.
+process is one device: its card, or the CPU.  The collectives take a
+``group`` (default: every rank): the mesh's rows and columns
+(``parallel/mesh.py``).  Tensor parallelism's two autograd functions are
+here: ``copy_to_shards`` (the input of a row-sharded product: identity,
+and in backward the sum over the group of the ranks' shares) and
+``gather_columns`` (its output: an all-gather, and in backward the
+rank's own columns).
 
 The backend follows the devices, and the choice is printed.  Before the
 group forms, every rank posts its host name and card count to the
@@ -125,31 +131,89 @@ def _staged(t):
     return t
 
 
-def all_reduce_sum(t):
-    """Sum ``t`` over the ranks; returns the sum (``t`` is left as it
-    was)."""
+def all_reduce_sum(t, group=None):
+    """Sum ``t`` over the ranks of ``group`` (default: all of them);
+    returns the sum (``t`` is left as it was)."""
     staged = _staged(t.detach()).clone()
-    dist.all_reduce(staged)
+    dist.all_reduce(staged, group=group)
     return staged.to(t.device)
 
 
+def all_gather_cat(t, group=None, dim=0):
+    """Every rank's ``t`` (equal shapes) of ``group``, concatenated along
+    ``dim`` in the group's rank order."""
+    staged = _staged(t.detach()).contiguous()
+    parts = [torch.empty_like(staged)
+             for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, staged, group=group)
+    return torch.cat(parts, dim=dim).to(t.device)
+
+
 class _SumOverRanks(torch.autograd.Function):
-    """Forward: the sum over the ranks.  Backward: the sum over the ranks
-    of the incoming gradients, so each rank's gradient through the sum
-    is that of every rank's loss."""
+    """Forward: the sum over the group's ranks.  Backward: the sum over
+    them of the incoming gradients, so each rank's gradient through the
+    sum is that of every rank's loss."""
 
     @staticmethod
-    def forward(ctx, t):
-        return all_reduce_sum(t)
+    def forward(ctx, t, group):
+        ctx.group = group
+        return all_reduce_sum(t, group)
 
     @staticmethod
     def backward(ctx, grad):
-        return all_reduce_sum(grad)
+        return all_reduce_sum(grad, ctx.group), None
 
 
-def all_reduce_sum_differentiable(t):
+def all_reduce_sum_differentiable(t, group=None):
     """``all_reduce_sum`` inside autograd (``_SumOverRanks``)."""
-    return _SumOverRanks.apply(t)
+    return _SumOverRanks.apply(t, group)
+
+
+class _CopyToShards(torch.autograd.Function):
+    """The input of a row-sharded product (tensor parallelism).  Forward:
+    the tensor itself, which every rank of ``group`` holds whole and
+    multiplies by its rows of the weight.  Backward: the sum over the
+    group of the incoming gradients, each rank's share ``dy_m W_m`` of
+    the input's gradient."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_sum(grad, ctx.group), None
+
+
+class _GatherColumns(torch.autograd.Function):
+    """The output of a row-sharded product (tensor parallelism).
+    Forward: every rank's columns side by side along the last dim, in
+    the group's rank order.  Backward: this rank's columns of the
+    incoming gradient.  Everything after the gather is replicated, so
+    every rank holds the same whole gradient and its own columns are its
+    shard's; a reduce-scatter would multiply them by the group's size."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.rank, ctx.width = dist.get_rank(group), t.shape[-1]
+        return all_gather_cat(t, group, dim=-1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        start = ctx.rank * ctx.width
+        return grad[..., start:start + ctx.width], None
+
+
+def copy_to_shards(t, group):
+    """``t`` as the input of a product sharded over ``group``
+    (``_CopyToShards``)."""
+    return _CopyToShards.apply(t, group)
+
+
+def gather_columns(t, group):
+    """The ranks' columns of ``group`` side by side (``_GatherColumns``)."""
+    return _GatherColumns.apply(t, group)
 
 
 def barrier():

@@ -59,8 +59,8 @@ def run(flags):
 
 
 def _check_mesh(flags):
-    """Embedding splits over every process; a ``--mesh_shape`` names at
-    most that many devices, on the 'data' axis alone."""
+    """Embedding splits the frames over every process, whatever the
+    mesh's axes; a ``--mesh_shape`` names at most that many devices."""
     shape = pmesh.parse_mesh_shape(flags.mesh_shape)
     if shape is None:
         return
@@ -68,7 +68,6 @@ def _check_mesh(flags):
     want = shape[0] * shape[1]
     if want > size:
         raise ValueError(f"mesh {shape} needs {want} devices, have {size}")
-    pmesh.make_mesh(shape, n_devices=want)
 
 
 def _run(flags, device, save_name):

@@ -11,13 +11,19 @@ entry points (cited lines are the behavior contract):
                          policy on raw pixels; no frozen encoder)
 
 Everything runs on ``cuda`` unless ``--disable_cuda`` asks for the CPU.
-``--coordinator host:port --num_processes d --process_id i`` makes the
-run one rank of d over ``torch.distributed`` (``parallel/multihost.py``),
-with ``--mesh_shape d`` (or none: every process on 'data'): data
-parallelism, in which every rank samples the same global starts and
-trains on its B/d columns of them, the gradients and the BatchNorm
-statistics are summed over the ranks (``train/bc_step.py``), the ranks
-stay bitwise equal, and rank 0 alone writes the stats and checkpoints.
+``--coordinator host:port --num_processes n --process_id i`` makes the
+run one rank of n over ``torch.distributed`` (``parallel/multihost.py``)
+on a ``--mesh_shape d,m`` mesh of d·m = n ranks (none: every process on
+'data'; ``parallel/mesh.py``).  Data parallelism: every rank samples the
+same global starts and trains on its data index's B/d columns of them,
+and the gradients and the BatchNorm statistics are summed over its data
+group (``train/bc_step.py``).  Tensor parallelism: each rank holds its
+rows of the policy's sharded weights and of their RMSprop state
+(``bc_step.shard_state``); online eval and the checkpoints take the
+whole state, gathered over the model group at each eval point
+(``bc_step.gather_state``), so a checkpoint is the one-process file and
+a resumed run slices it, on any mesh.  Rank 0 alone writes the stats and
+checkpoints.
 The dataset is device-resident when it fits (uint8 frames for
 finetune), the unroll gather runs where the dataset is, and the metrics
 stay on the device between eval points.
@@ -59,13 +65,13 @@ def compute_dtype(flags):
 def data_columns(batch_size, mesh):
     """This rank's columns of a global batch of ``batch_size`` sharded
     over the mesh's 'data' axis (equal shards, as the JAX trainer
-    asserts)."""
+    asserts): those of its data index."""
     if batch_size % mesh.data:
         raise ValueError(f"batch_size {batch_size} does not divide over "
                          f"the mesh's data axis of {mesh.data}")
     per_rank = batch_size // mesh.data
-    rank = multihost.world()[1]
-    return slice(rank * per_rank, (rank + 1) * per_rank)
+    return slice(mesh.data_index * per_rank,
+                 (mesh.data_index + 1) * per_rank)
 
 
 def embed_in_minibatches(embedding_model, obs, batch_size, limit=None):
@@ -237,6 +243,8 @@ def _run(flags, mode, device):
         state = bc_step.TrainState(params, batch_stats,
                                    ckpt.restore_opt_state(payload, device),
                                    state.generator)
+    # the whole state (fresh, or the one-process file) -> this rank's part
+    state = bc_step.shard_state(mesh, state)
 
     print("=== BC run ===")
     print("   embedding:", embedding_label or flags.embedding_name)
@@ -246,6 +254,9 @@ def _run(flags, mode, device):
     if mesh.data > 1:
         print(f"   data parallel: {mesh.data} ranks, columns "
               f"[{columns.start}, {columns.stop}) of each batch")
+    if mesh.model > 1:
+        print(f"   tensor parallel: {mesh.model} ranks a row, rows of "
+              f"model index {mesh.model_index} here")
     if flags.debug:
         print("   RUNNING IN DEBUG MODE!")
 
@@ -277,8 +288,9 @@ def _run(flags, mode, device):
     embedding_state_host = (embedding_model.state_dict()
                             if embedding_model is not None else None)
 
-    def evaluate():
-        runner = PolicyRunner(state.params, state.batch_stats,
+    def evaluate(whole):
+        """Online eval of ``whole``, the gathered state."""
+        runner = PolicyRunner(whole.params, whole.batch_stats,
                               batch_norm=flags.batch_norm,
                               conv_policy=conv_policy)
         with profiling.annotate("eval"):
@@ -296,7 +308,7 @@ def _run(flags, mode, device):
     else:
         print("=== Initial evaluation ===")
         stats = stats_util.new_stats(to_env, stat_keys)
-        stats_ep = evaluate()
+        stats_ep = evaluate(bc_step.gather_state(mesh, state))
         stats_util.append_eval(stats, to_env, stats_ep, stat_keys)
         for k in stat_keys:
             print("  ", k, np.mean(stats_ep[k]))
@@ -313,7 +325,7 @@ def _run(flags, mode, device):
     step_fn = bc_step.make_train_step(opt, batch_norm=flags.batch_norm,
                                       conv_policy=conv_policy,
                                       max_grad_norm=flags.max_grad_norm,
-                                      data_parallel=mesh.data > 1)
+                                      mesh=mesh)
 
     print("=== Training policy ===")
     frames_per_epoch = flags.batch_size * flags.unroll_length
@@ -339,10 +351,11 @@ def _run(flags, mode, device):
             frames_log = frames - frames_per_epoch
 
             if (epoch + 1) % flags.eval_frequency == 0:
+                whole = bc_step.gather_state(mesh, state)
                 if not flags.essential_save_only or \
                         stats_util.is_essential_save(
                             epoch, max_epochs, flags.eval_frequency):
-                    stats_ep = evaluate()
+                    stats_ep = evaluate(whole)
                     stats_util.append_eval(stats, to_env, stats_ep,
                                            stat_keys)
                     for k in stat_keys:
@@ -363,9 +376,9 @@ def _run(flags, mode, device):
                     stats_util.save_stats(save_path + ".pickle", stats)
                     ckpt.save_checkpoint(
                         save_path + ".tar",
-                        actor_params=state.params,
-                        actor_batch_stats=state.batch_stats,
-                        opt_state=state.opt_state,
+                        actor_params=whole.params,
+                        actor_batch_stats=whole.batch_stats,
+                        opt_state=whole.opt_state,
                         flags=flags,
                         embedding_state=embedding_state_host)
 

@@ -8,14 +8,18 @@ is functional (flat dicts of tensors in, new ones out), as in the JAX
 package, and the metrics stay 0-d tensors on the device until a caller
 reads them.
 
-Data parallelism (``data_parallel=True``): the batch is this rank's
-columns of a global batch sharded in equal parts over the ranks of
-``torch.distributed``.  The BatchNorm statistics are the global batch's,
-the gradients are summed over the ranks and divided by their number
-before the pre-clip norm and the clip, and the logged loss is the
-global mean, so every rank takes the same step as one device on the
-global batch (the JAX package's sharded step, where XLA places the
-all-reduce).
+On a mesh of ranks (``mesh``, ``parallel/mesh.py``), data parallelism:
+the batch is this rank's columns of a global batch sharded in equal
+parts over the mesh's 'data' axis.  The BatchNorm statistics are the
+global batch's, the gradients are summed over the rank's data group and
+divided by its size before the pre-clip norm and the clip, and the
+logged loss is the global mean.  Tensor parallelism: the params are
+this rank's rows of the sharded weights (``policy_param_spec``), their
+gradients are those rows' (averaged over the data group like the
+replicated ones), the pre-clip norm sums the sharded squares over the
+model group, and RMSprop's state shards like its params.  So every rank
+takes its part of the step one device takes on the global batch (the
+JAX package's sharded step, where XLA places the collectives).
 
 The JAX package's fused-gather and chunked steps exist only to save
 dispatches (one per epoch, one per eval block).  Eager PyTorch has no
@@ -30,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from pvr_habitat_tpu_torch.models import policy as policy_mod
+from pvr_habitat_tpu_torch.parallel import mesh as pmesh
 from pvr_habitat_tpu_torch.parallel import multihost
 from pvr_habitat_tpu_torch.train import optim
 from pvr_habitat_tpu_torch.utils.platform import resolve_device
@@ -65,6 +70,30 @@ def create_train_state(rng_np, obs_shape, num_actions, flags, *,
     return TrainState(params, stats, opt.init(params), generator), opt
 
 
+def _map_sharded(fn, mesh, state):
+    opt = state.opt_state
+    return state._replace(
+        params=fn(mesh, state.params),
+        opt_state=opt._replace(
+            square_avg=fn(mesh, opt.square_avg),
+            momentum_buf=opt.momentum_buf if opt.momentum_buf == ()
+            else fn(mesh, opt.momentum_buf)))
+
+
+def shard_state(mesh, state):
+    """This rank's part of a whole ``TrainState`` on a mesh with a 'model'
+    axis: its rows of the sharded params and of RMSprop's ``square_avg``
+    and ``momentum_buf``; the BatchNorm statistics and the step count are
+    replicated (the JAX trainer's ``_shard_state``)."""
+    return _map_sharded(pmesh.shard_params, mesh, state)
+
+
+def gather_state(mesh, state):
+    """The whole ``TrainState`` from every rank's part (over its model
+    group): what a checkpoint holds and online eval runs on."""
+    return _map_sharded(pmesh.gather_params, mesh, state)
+
+
 def nll_loss(logits, actions):
     """F.nll_loss(F.log_softmax(logits), target): mean cross entropy
     over the merged (T*B) axis (reference: main_bc_2.py:211-214)."""
@@ -73,7 +102,7 @@ def nll_loss(logits, actions):
 
 
 def step_body(state, batch, opt, *, batch_norm=False, conv_policy=False,
-              max_grad_norm=40.0, data_parallel=False):
+              max_grad_norm=40.0, mesh=None):
     """One epoch on a gathered batch dict(obs, action, done) of (T, B,
     ...) tensors.  Returns (new_state, dict(loss, gradient_norm))."""
     b = batch["action"].shape[1]
@@ -86,7 +115,7 @@ def step_body(state, batch, opt, *, batch_norm=False, conv_policy=False,
         dict(obs=batch["obs"], done=batch["done"]),
         policy_mod.initial_state(b, batch["obs"].device),
         batch_norm=batch_norm, train=True, generator=state.generator,
-        sync_batch_stats=data_parallel)
+        mesh=mesh)
     loss = nll_loss(outputs["policy_logits"], batch["action"])
     # The baseline head is not in the loss: its grads are zeros, as
     # jax.grad gives them.
@@ -95,9 +124,14 @@ def step_body(state, batch, opt, *, batch_norm=False, conv_policy=False,
     grads = {k: torch.zeros_like(p) if g is None else g
              for (k, p), g in zip(params.items(), grads)}
     loss = loss.detach()
-    if data_parallel:
-        grads, loss = _average_over_ranks(grads, loss)
-    grads, gnorm = optim.clip_by_global_norm_torch(grads, max_grad_norm)
+    sharded, group = (), None
+    if mesh is not None:
+        if mesh.data > 1:
+            grads, loss = _average_over_ranks(grads, loss, mesh)
+        if mesh.model > 1:
+            sharded, group = pmesh.sharded_keys(grads), mesh.model_group
+    grads, gnorm = optim.clip_by_global_norm_torch(grads, max_grad_norm,
+                                                   sharded, group)
     updates, new_opt_state = opt.update(grads, state.opt_state)
     new_params = optim.apply_updates(state.params, updates)
     new_state = TrainState(new_params, new_stats, new_opt_state,
@@ -105,14 +139,13 @@ def step_body(state, batch, opt, *, batch_norm=False, conv_policy=False,
     return new_state, dict(loss=loss, gradient_norm=gnorm)
 
 
-def _average_over_ranks(grads, loss):
-    """The mean over the ranks of every gradient and of the loss, by one
-    all-reduce of one flat buffer (equal shards: the mean of the ranks'
-    means is the global batch's)."""
-    size = multihost.world()[0]
+def _average_over_ranks(grads, loss, mesh):
+    """The mean over the data group's ranks of every gradient and of the
+    loss, by one all-reduce of one flat buffer (equal shards: the mean of
+    the ranks' means is the global batch's)."""
     flat = torch.cat([g.reshape(-1) for g in grads.values()]
                      + [loss.reshape(1)])
-    flat = multihost.all_reduce_sum(flat) / size
+    flat = multihost.all_reduce_sum(flat, mesh.data_group) / mesh.data
     out, offset = {}, 0
     for k, g in grads.items():
         out[k] = flat[offset:offset + g.numel()].view_as(g)
@@ -121,18 +154,18 @@ def _average_over_ranks(grads, loss):
 
 
 def make_train_step(opt, *, batch_norm=False, conv_policy=False,
-                    max_grad_norm=40.0, data_parallel=False):
+                    max_grad_norm=40.0, mesh=None):
     """Returns step(state, batch) -> (state, metrics).
 
     batch: dict(obs=(T, B, ...), action=(T, B), done=(T, B)) tensors; obs
     are uint8 frames (T, B, H, W, C) for the conv policy.
     metrics: dict(loss, gradient_norm) — pre-clip norm, as logged by the
-    reference.  ``data_parallel``: the batch is this rank's share of a
-    global batch (see the module docstring).
+    reference.  ``mesh``: this rank's place on a mesh of ranks (see the
+    module docstring), or None for one process.
     """
     def step(state, batch):
         return step_body(state, batch, opt, batch_norm=batch_norm,
                          conv_policy=conv_policy, max_grad_norm=max_grad_norm,
-                         data_parallel=data_parallel)
+                         mesh=mesh)
 
     return step

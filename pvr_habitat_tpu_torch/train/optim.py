@@ -21,6 +21,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from pvr_habitat_tpu_torch.parallel import multihost
+
 
 class RMSpropTorchState(NamedTuple):
     count: int              # number of optimizer steps taken so far
@@ -80,9 +82,18 @@ def apply_updates(params, updates):
 
 
 @torch.no_grad()
-def clip_by_global_norm_torch(grads, max_norm):
+def clip_by_global_norm_torch(grads, max_norm, sharded=(), group=None):
     """torch clip_grad_norm_: returns (clipped_grads, pre_clip_norm), the
-    norm a 0-d tensor on the grads' device."""
-    gnorm = torch.sqrt(sum(torch.sum(g * g) for g in grads.values()))
+    norm a 0-d tensor on the grads' device.  ``sharded``: the keys whose
+    grads are this rank's rows of a parameter split over the ranks of
+    ``group`` (tensor parallelism); their squares are summed over the
+    group and the replicated grads' counted once, so every rank clips by
+    the whole parameters' norm."""
+    sq = sum(torch.sum(g * g) for k, g in grads.items() if k not in sharded)
+    if sharded:
+        sq = sq + multihost.all_reduce_sum(
+            sum(torch.sum(grads[k] * grads[k]) for k in sorted(sharded)),
+            group)
+    gnorm = torch.sqrt(sq)
     coef = torch.clamp(max_norm / (gnorm + 1e-6), max=1.0)
     return {k: g * coef for k, g in grads.items()}, gnorm

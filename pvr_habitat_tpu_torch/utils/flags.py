@@ -7,8 +7,8 @@ flag name and default is the same, so sweep grids and checkpointed
 everything on the CPU; without it everything runs on ``cuda`` or raises.
 ``--coordinator``, ``--num_processes`` and ``--process_id`` make a run
 one rank of several over ``torch.distributed`` (``parallel/``), one
-device a process; a ``--mesh_shape`` names those processes on the
-'data' axis (a 'model' axis above 1 raises).
+device a process; a ``--mesh_shape d,m`` lays those processes out on
+the 'data' and 'model' axes.
 """
 
 import argparse

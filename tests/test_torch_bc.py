@@ -194,14 +194,18 @@ def test_embed_at_load_imagenav_fused_eval_matches_jax(workdir):
 
 def test_unported_options_raise(workdir):
     """A mesh of more devices than processes raises with the JAX package's
-    message; a 'model' axis above 1 (tensor parallelism) is not ported and
-    names its ROADMAP item; without CUDA nothing falls back to the CPU."""
+    message (a one-process run on a 'model' axis of 2 too); a 'model'
+    axis above 1 (tensor parallelism) builds the mesh
+    (``tests/test_torch_tensor_parallel.py`` trains on it); without CUDA
+    nothing falls back to the CPU."""
     with pytest.raises(ValueError, match=r"mesh \(2, 1\) != 1 devices"):
         bc.run(_flags(workdir, "x", mesh_shape="2,1"))
     with pytest.raises(ValueError, match=r"mesh \(3, 3\) != 1 devices"):
         bc.run(_flags(workdir, "x", mesh_shape="3,3"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pmesh.make_mesh((1, 2), n_devices=2)
+    with pytest.raises(ValueError, match=r"mesh \(1, 2\) != 1 devices"):
+        bc.run(_flags(workdir, "x", mesh_shape="1,2"))
+    assert pmesh.make_mesh((1, 2), n_devices=2).shape == \
+        {"data": 1, "model": 2}
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             bc.run(_flags(workdir, "x", disable_cuda=False))

@@ -133,8 +133,7 @@ def test_cli_matches_jax(raw_dir, tmp_path, option):
 def test_cli_refuses_what_is_not_ported(raw_dir, tmp_path, args, error,
                                         match):
     """One process is one device: a mesh of more devices than processes
-    raises (a 'model' axis above 1 raises too, naming its ROADMAP item:
-    ``tests/test_torch_multihost.py``) and nothing is written."""
+    raises and nothing is written."""
     shutil.copy(jformats.raw_path(str(raw_dir), ENV),
                 jformats.raw_path(str(tmp_path), ENV))
     flags = save_embedded_obs.build_tool_parser().parse_args(

@@ -127,17 +127,27 @@ def test_imagenav_redraws_goals_per_episode():
 
 
 def test_unported_envs_raise_and_habitat_falls_back(monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_env.make_gym_env(_flags(flags, env="Atari-Pong"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_env.make_gym_env(_flags(flags, env="MiniGrid-Empty"))
+    """Atari and MiniGrid reach the gym adapter; without habitat,
+    Habitat* falls back to FakeNav with a warning; an installed habitat
+    reaches its adapter (``tests/test_torch_adapters.py`` drives both
+    adapters on stubs)."""
+    from pvr_habitat_tpu_torch.envs import gym_adapter, habitat_adapter
+
+    def reached(name, seed=None):
+        raise LookupError(name)
+
+    monkeypatch.setattr(gym_adapter, "make_gym_adapter", reached)
+    for name in ("Atari-Pong", "MiniGrid-Empty"):
+        with pytest.raises(LookupError, match=name):
+            make_env.make_gym_env(_flags(flags, env=name))
     with pytest.warns(UserWarning, match="FakeNav"):
         env = make_env.make_gym_env(
             _flags(flags, env="HabitatImageNav-hotel_0"))
     assert env.observation_space.shape == (64, 64, 6)
     # an installed habitat must not be ignored quietly
     monkeypatch.setattr(make_env, "_habitat_available", lambda: True)
-    with pytest.raises(NotImplementedError, match="habitat"):
+    monkeypatch.setattr(habitat_adapter, "make_habitat_sim", reached)
+    with pytest.raises(LookupError, match="hotel_0"):
         make_env.make_gym_env(_flags(flags, env="HabitatPointNav-hotel_0"))
 
 

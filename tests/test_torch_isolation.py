@@ -15,8 +15,9 @@ ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "pvr_habitat_tpu_torch"
 
 
-# The BC trainer, online-eval, encoder-zoo, int8-serving and
-# serving/scale-out slices: their modules and entry points.
+# The BC trainer, online-eval, encoder-zoo, int8-serving,
+# serving/scale-out and sweep/adapter/tensor-parallel slices: their
+# modules and entry points.
 SLICE_MODULES = [f"pvr_habitat_tpu_torch.{name}" for name in (
     "main_bc_1", "main_bc_2", "main_bc_finetune", "main_test",
     "data.embed_pipeline", "ops.quantize",
@@ -29,7 +30,8 @@ SLICE_MODULES = [f"pvr_habitat_tpu_torch.{name}" for name in (
     "tools.serve_embeddings", "data.native",
     "tools.save_opt_trajectories_png", "tools.save_opt_trajectories_jpeg",
     "tools.make_episode_dataset", "tools.gen_all", "parallel.multihost",
-    "parallel.mesh", "parallel.dryrun")]
+    "parallel.mesh", "parallel.dryrun", "envs.gym_adapter",
+    "envs.habitat_adapter", "tools.convert_checkpoint", "tools.sweep")]
 
 
 def _modules():

@@ -40,9 +40,11 @@ def test_mesh_and_slices():
     assert pmesh.make_mesh((2, 1), n_devices=2).data == 2
     with pytest.raises(ValueError, match=r"mesh \(3, 3\) != 1 devices"):
         pmesh.make_mesh((3, 3))
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1, item 3"):
-        pmesh.make_mesh((2, 2), n_devices=4)
+    # a 'model' axis (tensor parallelism) builds the mesh; without a
+    # group this process is rank 0, at data and model index 0
+    assert pmesh.make_mesh((2, 2), n_devices=4) == pmesh.Mesh(2, 2)
+    assert pmesh.make_mesh((2, 2), n_devices=4).shape == \
+        {"data": 2, "model": 2}
     for n in (0, 1, 7, 37):
         for p in (1, 2, 3):
             slices = [multihost.process_slice(n, p, i) for i in range(p)]
