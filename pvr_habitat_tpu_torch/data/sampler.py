@@ -17,6 +17,8 @@ import random
 import numpy as np
 import torch
 
+from pvr_habitat_tpu_torch.utils.profiling import span
+
 
 def _ranks(sample):
     order = sorted(range(len(sample)), key=lambda i: sample[i])
@@ -43,11 +45,13 @@ def unroll_index(starts, unroll_length, n):
 def gather_unrolls(data, starts, unroll_length):
     """data: dict of tensors keyed obs/action/done, all on one device;
     starts: B host start indices.  Returns a dict of (T, B, ...) tensors
-    on that device."""
-    first = next(iter(data.values()))
-    starts = torch.as_tensor(np.asarray(starts, np.int64)).to(first.device)
-    idx = unroll_index(starts, unroll_length, first.shape[0])
-    return {k: v[idx] for k, v in data.items()}
+    on that device, inside a ``data.gather`` span."""
+    with span("data.gather"):
+        first = next(iter(data.values()))
+        starts = torch.as_tensor(np.asarray(starts, np.int64)).to(
+            first.device)
+        idx = unroll_index(starts, unroll_length, first.shape[0])
+        return {k: v[idx] for k, v in data.items()}
 
 
 def dataset_nbytes(data):

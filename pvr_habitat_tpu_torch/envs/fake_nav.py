@@ -25,6 +25,8 @@ import hashlib
 
 import numpy as np
 
+from pvr_habitat_tpu_torch.utils.profiling import span
+
 CELL = 0.25
 GRID = 40                      # 10 m x 10 m world
 HFOV_DEG = 79.0
@@ -307,6 +309,12 @@ class FakeNavSim:
                                       float(heading))}
 
     def render_at(self, pos, heading):
+        """The (IMG_HW, IMG_HW, 3) uint8 view from ``pos`` at ``heading``,
+        inside an ``env.render`` span (``utils/profiling.py``)."""
+        with span("env.render"):
+            return self._render(pos, heading)
+
+    def _render(self, pos, heading):
         h = IMG_HW
         half_fov = np.deg2rad(HFOV_DEG) / 2.0
         col_angles = heading + np.linspace(half_fov, -half_fov, h)

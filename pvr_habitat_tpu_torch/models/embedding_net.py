@@ -17,6 +17,10 @@ can through the kernel; on the CPU and in train mode the default is
 plain path's work.  PyTorch runs eagerly, so the JAX package's
 power-of-two batch padding, which bounded its jit cache, is gone; the
 results are the same.
+
+Spans (``utils/profiling.py``): ``embed.preprocess`` and ``embed.encoder``
+in ``apply``; ``embed.call`` around a whole ``__call__`` (upload,
+forward, download).
 """
 
 import numpy as np
@@ -27,6 +31,7 @@ from pvr_habitat_tpu_torch.models.registry import build_encoder
 from pvr_habitat_tpu_torch.ops.fold_bn import fold_resnet_bn
 from pvr_habitat_tpu_torch.utils.pipeline import pipelined_map
 from pvr_habitat_tpu_torch.utils.platform import resolve_device
+from pvr_habitat_tpu_torch.utils.profiling import span
 
 
 class EmbeddingNet:
@@ -67,12 +72,14 @@ class EmbeddingNet:
 
     def apply(self, params, frames):
         """frames: uint8 tensor on ``self.device`` -> (N, out_size) f32."""
-        x = self.handle.preprocess(frames, out_dtype=self.compute_dtype)
-        if self.fused == "off":
-            out = self.handle.apply_fn(params, x, train=self.training)
-        else:
-            out = self.handle.apply_fn(params, x, fused=self.fused)
-        return out.reshape(out.shape[0], -1).float()
+        with span("embed.preprocess"):
+            x = self.handle.preprocess(frames, out_dtype=self.compute_dtype)
+        with span("embed.encoder"):
+            if self.fused == "off":
+                out = self.handle.apply_fn(params, x, train=self.training)
+            else:
+                out = self.handle.apply_fn(params, x, fused=self.fused)
+            return out.reshape(out.shape[0], -1).float()
 
     def _forward(self, frames):
         with torch.inference_mode(not self.training):
@@ -91,12 +98,14 @@ class EmbeddingNet:
         """
         if self.embedding_name == "true_state":
             return np.squeeze(np.asarray(observation))
-        frames = self._upload(observation)
-        out = torch.cat([self._forward(frames[i:i + self.max_bucket])
-                         for i in range(0, frames.shape[0], self.max_bucket)])
-        if self.training:
-            return out.squeeze()
-        return out.cpu().numpy().squeeze()
+        with span("embed.call"):
+            frames = self._upload(observation)
+            out = torch.cat([self._forward(frames[i:i + self.max_bucket])
+                             for i in range(0, frames.shape[0],
+                                            self.max_bucket)])
+            if self.training:
+                return out.squeeze()
+            return out.cpu().numpy().squeeze()
 
     def embed_batches(self, frames, batch_size):
         """Bulk path (the main_bc_1 embed-at-load hot loop, reference

@@ -18,13 +18,17 @@ write, and has no counterpart.
 
 A wrapper runs the plain version only for a tensor on the CPU.  For a
 CUDA tensor it launches the kernel or raises; it never falls back.  Each
-launch adds one to ``launches["fused_attention"]``.
+launch adds one to ``launches["fused_attention"]``.  Each call is a
+``kernel.fused_attention`` span (``utils/profiling.py``) with the call's
+``shape`` (``attention_shape``).
 """
 
 import ctypes
 import math
 
 import torch
+
+from pvr_habitat_tpu_torch.utils.profiling import span
 
 launches = {"fused_attention": 0}
 
@@ -87,6 +91,19 @@ def fused_attention(q, k, v, lib=None):
     launches other builds of the kernel (``build.load`` with a source of
     its own) to time them against the tree's; every other caller leaves
     it unset."""
+    with span("kernel.fused_attention", shape=lambda: attention_shape(q)):
+        return _attention(q, k, v, lib)
+
+
+def attention_shape(q):
+    """What a call's operations and bytes follow from: batch, heads,
+    length, head size, item size and dtype."""
+    n, h, l, d = q.shape
+    return dict(n=n, h=h, l=l, d=d, itemsize=q.element_size(),
+                dtype=str(q.dtype)[6:])
+
+
+def _attention(q, k, v, lib):
     if q.device.type == "cpu":
         return fused_attention_ref(q, k, v)
     if q.device.type != "cuda":

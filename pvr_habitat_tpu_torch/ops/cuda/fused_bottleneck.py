@@ -11,7 +11,9 @@ A wrapper runs the plain version only for a tensor on the CPU.  For a
 CUDA tensor it launches the kernel or raises; it never falls back.  Each
 launch adds one to ``launches[<kernel>]``, so a run can show that its
 main path went through the kernels, and leaves its launch shape in
-``last_launch[<kernel>]``.
+``last_launch[<kernel>]``.  Each ``fused_bottleneck`` call is a
+``kernel.fused_bottleneck`` span (``utils/profiling.py``) with the call's
+``shape`` (``block_shape``).
 
 Launch shape: ``pick_launch`` chooses a launch's output tile and, in
 f32, how many blocks (a thread-block cluster) split each tile's
@@ -27,6 +29,8 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from pvr_habitat_tpu_torch.utils.profiling import span
 
 launches = {"fused_bottleneck": 0, "fused_bottleneck_flat": 0}
 # (tile, cluster, blocks) of each kernel's last launch
@@ -297,6 +301,14 @@ def _record(name, ho, wo, n, tile, cluster):
                          * math.ceil(wo / tile) * cluster * n)
 
 
+def block_shape(x, w1, w3, wd, stride):
+    """What a block's operations and bytes follow from: batch, input
+    side, stride, widths, projection, item size and dtype."""
+    return dict(n=x.shape[0], h=x.shape[1], stride=stride, cin=x.shape[3],
+                p=w1.shape[1], cout=w3.shape[1], ds=wd is not None,
+                itemsize=x.element_size(), dtype=str(x.dtype)[6:])
+
+
 def fused_bottleneck(x, w1, b1, w2, b2, w3, b3, wd=None, bd=None, stride=1,
                      lib=None):
     """x: (N, H, W, Cin) f32 or bf16.  w1 (Cin, P), w2 (9, P, P), w3
@@ -305,9 +317,12 @@ def fused_bottleneck(x, w1, b1, w2, b2, w3, b3, wd=None, bd=None, stride=1,
     ``tools/bottleneck_variants.py``, which launches other builds of the
     kernel (``build.load`` with a source of its own) to time them against
     the tree's; every other caller leaves it unset."""
-    if x.device.type == "cpu":
-        return fused_bottleneck_ref(x, w1, b1, w2, b2, w3, b3, wd, bd, stride)
-    return _launch(x, w1, b1, w2, b2, w3, b3, wd, bd, stride, lib)
+    with span("kernel.fused_bottleneck",
+              shape=lambda: block_shape(x, w1, w3, wd, stride)):
+        if x.device.type == "cpu":
+            return fused_bottleneck_ref(x, w1, b1, w2, b2, w3, b3, wd, bd,
+                                        stride)
+        return _launch(x, w1, b1, w2, b2, w3, b3, wd, bd, stride, lib)
 
 
 def _launch(x, w1, b1, w2, b2, w3, b3, wd, bd, stride, lib, shape=None):

@@ -25,6 +25,7 @@ ranks' shares of their gradients.
 import torch
 
 from pvr_habitat_tpu_torch.parallel import multihost
+from pvr_habitat_tpu_torch.utils.profiling import span
 
 
 def stack_lstm_params(flat, prefix, num_layers):
@@ -63,16 +64,20 @@ def lstm_scan(layers, x, h0, c0, notdone, model_group=None):
       model_group: the ranks the gate rows are sharded over, or None.
 
     Returns: (ys (T, B, H) top-layer outputs, (hT, cT)).
+
+    The whole unroll is one ``policy.lstm`` span (``utils/profiling.py``).
     """
-    h = list(h0.unbind(0))
-    c = list(c0.unbind(0))
-    ys = []
-    for t in range(x.shape[0]):
-        nd = notdone[t][:, None]
-        inp = x[t]
-        for layer, params in enumerate(layers):
-            h[layer], c[layer] = _cell(inp, h[layer] * nd, c[layer] * nd,
-                                       *params, model_group)
-            inp = h[layer]
-        ys.append(inp)
-    return torch.stack(ys), (torch.stack(h), torch.stack(c))
+    with span("policy.lstm"):
+        h = list(h0.unbind(0))
+        c = list(c0.unbind(0))
+        ys = []
+        for t in range(x.shape[0]):
+            nd = notdone[t][:, None]
+            inp = x[t]
+            for layer, params in enumerate(layers):
+                h[layer], c[layer] = _cell(inp, h[layer] * nd,
+                                           c[layer] * nd, *params,
+                                           model_group)
+                inp = h[layer]
+            ys.append(inp)
+        return torch.stack(ys), (torch.stack(h), torch.stack(c))

@@ -293,7 +293,7 @@ def _run(flags, mode, device):
         runner = PolicyRunner(whole.params, whole.batch_stats,
                               batch_norm=flags.batch_norm,
                               conv_policy=conv_policy)
-        with profiling.annotate("eval"):
+        with profiling.span("bc.eval"):
             return _evaluate(runner, eval_envs, stat_keys,
                              flags.n_episodes_test,
                              embedding_model if eval_batched_embed
@@ -331,14 +331,13 @@ def _run(flags, mode, device):
     frames_per_epoch = flags.batch_size * flags.unroll_length
     metrics = None
     timer = profiling.StepTimer(items_per_step=frames_per_epoch,
-                                report_every=max(flags.eval_frequency, 1),
                                 label="train")
     frames = init_frames
     with profiling.trace(flags.profile_dir):
         while frames < flags.max_frames:
             starts = sampler.sample_with_minimum_distance(
                 n=n_samples, k=flags.batch_size, d=flags.unroll_length)
-            with profiling.annotate("train"):
+            with profiling.span("bc.train"):
                 batch = sampler.gather_unrolls(train_data, starts[columns],
                                                flags.unroll_length)
                 state, metrics = step_fn(
@@ -351,6 +350,11 @@ def _run(flags, mode, device):
             frames_log = frames - frames_per_epoch
 
             if (epoch + 1) % flags.eval_frequency == 0:
+                # Reading the metrics waits for the device: the timer's
+                # report is the training rate since the last eval point.
+                loss = float(metrics["loss"])
+                gnorm = float(metrics["gradient_norm"])
+                timer.report()
                 whole = bc_step.gather_state(mesh, state)
                 if not flags.essential_save_only or \
                         stats_util.is_essential_save(
@@ -363,8 +367,6 @@ def _run(flags, mode, device):
                 else:
                     stats_util.append_nan_eval(stats, to_env, stat_keys)
 
-                loss = float(metrics["loss"])
-                gnorm = float(metrics["gradient_norm"])
                 stats[to_env]["frames"].append(frames_log)
                 stats[to_env]["training_loss"].append(loss)
                 stats[to_env]["gradient_norm"].append(gnorm)
@@ -381,6 +383,7 @@ def _run(flags, mode, device):
                         opt_state=whole.opt_state,
                         flags=flags,
                         embedding_state=embedding_state_host)
+                timer.restart()
 
     env.close()
     for e in eval_envs:

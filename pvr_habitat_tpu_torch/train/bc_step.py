@@ -26,6 +26,10 @@ dispatches (one per epoch, one per eval block).  Eager PyTorch has no
 such cost to save: K of its steps on the batches that
 ``sampler.gather_unrolls`` indexes on the data's device give the
 losses of either.
+
+Spans (``utils/profiling.py``): ``train.forward`` (the policy and the
+loss), ``train.backward`` (the gradients), ``train.clip`` and
+``train.optimizer`` (the update and its application).
 """
 
 from typing import Any, NamedTuple
@@ -38,6 +42,7 @@ from pvr_habitat_tpu_torch.parallel import mesh as pmesh
 from pvr_habitat_tpu_torch.parallel import multihost
 from pvr_habitat_tpu_torch.train import optim
 from pvr_habitat_tpu_torch.utils.platform import resolve_device
+from pvr_habitat_tpu_torch.utils.profiling import span
 
 
 class TrainState(NamedTuple):
@@ -110,19 +115,21 @@ def step_body(state, batch, opt, *, batch_norm=False, conv_policy=False,
               state.params.items()}
     apply_fn = (policy_mod.apply_conv_policy if conv_policy
                 else policy_mod.apply_policy)
-    outputs, _, new_stats = apply_fn(
-        params, state.batch_stats,
-        dict(obs=batch["obs"], done=batch["done"]),
-        policy_mod.initial_state(b, batch["obs"].device),
-        batch_norm=batch_norm, train=True, generator=state.generator,
-        mesh=mesh)
-    loss = nll_loss(outputs["policy_logits"], batch["action"])
-    # The baseline head is not in the loss: its grads are zeros, as
-    # jax.grad gives them.
-    grads = torch.autograd.grad(loss, list(params.values()),
-                                allow_unused=True)
-    grads = {k: torch.zeros_like(p) if g is None else g
-             for (k, p), g in zip(params.items(), grads)}
+    with span("train.forward"):
+        outputs, _, new_stats = apply_fn(
+            params, state.batch_stats,
+            dict(obs=batch["obs"], done=batch["done"]),
+            policy_mod.initial_state(b, batch["obs"].device),
+            batch_norm=batch_norm, train=True, generator=state.generator,
+            mesh=mesh)
+        loss = nll_loss(outputs["policy_logits"], batch["action"])
+    with span("train.backward"):
+        # The baseline head is not in the loss: its grads are zeros, as
+        # jax.grad gives them.
+        grads = torch.autograd.grad(loss, list(params.values()),
+                                    allow_unused=True)
+        grads = {k: torch.zeros_like(p) if g is None else g
+                 for (k, p), g in zip(params.items(), grads)}
     loss = loss.detach()
     sharded, group = (), None
     if mesh is not None:
@@ -130,10 +137,12 @@ def step_body(state, batch, opt, *, batch_norm=False, conv_policy=False,
             grads, loss = _average_over_ranks(grads, loss, mesh)
         if mesh.model > 1:
             sharded, group = pmesh.sharded_keys(grads), mesh.model_group
-    grads, gnorm = optim.clip_by_global_norm_torch(grads, max_grad_norm,
-                                                   sharded, group)
-    updates, new_opt_state = opt.update(grads, state.opt_state)
-    new_params = optim.apply_updates(state.params, updates)
+    with span("train.clip"):
+        grads, gnorm = optim.clip_by_global_norm_torch(grads, max_grad_norm,
+                                                       sharded, group)
+    with span("train.optimizer"):
+        updates, new_opt_state = opt.update(grads, state.opt_state)
+        new_params = optim.apply_updates(state.params, updates)
     new_state = TrainState(new_params, new_stats, new_opt_state,
                            state.generator)
     return new_state, dict(loss=loss, gradient_norm=gnorm)

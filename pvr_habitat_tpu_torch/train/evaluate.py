@@ -5,13 +5,15 @@ The latency-sensitive path: per simulator step the encoder runs (inside
 ``EmbeddingWrapper``, or inside ``FusedPolicyRunner.tick``) and then one
 policy step, batch 1 or K lockstep envs.  ``PolicyRunner`` carries the
 LSTM state across steps on the policy's device; each step uploads the
-observation and downloads the actions once.
+observation and downloads the actions once, inside an ``eval.policy``
+span (``utils/profiling.py``).
 """
 
 import numpy as np
 import torch
 
 from pvr_habitat_tpu_torch.models import policy as policy_mod
+from pvr_habitat_tpu_torch.utils.profiling import span
 
 
 class PolicyRunner:
@@ -56,10 +58,13 @@ class PolicyRunner:
         return action.reshape(logits.shape[:2]), new_state
 
     def __call__(self, env_output, core_state):
-        obs = torch.as_tensor(np.asarray(env_output["obs"])).to(self.device)
-        done = torch.as_tensor(np.asarray(env_output["done"])).to(self.device)
-        action, new_state = self.step(obs, done, core_state)
-        return dict(action=action.cpu().numpy()), new_state
+        with span("eval.policy"):
+            obs = torch.as_tensor(np.asarray(env_output["obs"])).to(
+                self.device)
+            done = torch.as_tensor(np.asarray(env_output["done"])).to(
+                self.device)
+            action, new_state = self.step(obs, done, core_state)
+            return dict(action=action.cpu().numpy()), new_state
 
 
 class FusedPolicyRunner:

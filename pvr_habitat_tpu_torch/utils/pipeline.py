@@ -9,11 +9,18 @@ Error semantics: an exception in any stage cancels the pipeline and
 re-raises in the caller (no silent thread death, no deadlock — device
 errors from asynchronous launches surface at the blocking fetch, which
 is inside the fetcher thread here).
+
+Spans (``utils/profiling.py``): ``pipeline.stage`` and ``pipeline.fetch``
+on the stager's and the fetcher's threads; on the caller's,
+``pipeline.wait_stage`` (waiting for the next upload),
+``pipeline.dispatch`` and ``pipeline.wait_slot`` (a full queue).
 """
 
 import queue as queue_mod
 import threading
 from concurrent.futures import ThreadPoolExecutor
+
+from pvr_habitat_tpu_torch.utils.profiling import span
 
 
 def pipelined_map(items, stage, dispatch, fetch, depth=4):
@@ -34,6 +41,10 @@ def pipelined_map(items, stage, dispatch, fetch, depth=4):
     outq = queue_mod.Queue(maxsize=depth)
     failure = []
 
+    def stage_one(item):
+        with span("pipeline.stage"):
+            return stage(item)
+
     def fetch_worker():
         while True:
             entry = outq.get()
@@ -41,7 +52,8 @@ def pipelined_map(items, stage, dispatch, fetch, depth=4):
                 return
             idx, dev = entry
             try:
-                results[idx] = fetch(dev)
+                with span("pipeline.fetch"):
+                    results[idx] = fetch(dev)
             except BaseException as exc:  # surface async device errors
                 failure.append(exc)
                 return
@@ -50,22 +62,25 @@ def pipelined_map(items, stage, dispatch, fetch, depth=4):
     fetcher.start()
     try:
         with ThreadPoolExecutor(max_workers=1) as stager:
-            nxt = stager.submit(stage, items[0])
+            nxt = stager.submit(stage_one, items[0])
             for j, _ in enumerate(items):
-                staged = nxt.result()
+                with span("pipeline.wait_stage"):
+                    staged = nxt.result()
                 if j + 1 < len(items):
-                    nxt = stager.submit(stage, items[j + 1])
+                    nxt = stager.submit(stage_one, items[j + 1])
                 if failure:
                     raise failure[0]
-                dev = dispatch(staged)
+                with span("pipeline.dispatch"):
+                    dev = dispatch(staged)
                 # bounded put, but never block forever on a dead fetcher
-                while True:
-                    try:
-                        outq.put((j, dev), timeout=1.0)
-                        break
-                    except queue_mod.Full:
-                        if failure:
-                            raise failure[0]
+                with span("pipeline.wait_slot"):
+                    while True:
+                        try:
+                            outq.put((j, dev), timeout=1.0)
+                            break
+                        except queue_mod.Full:
+                            if failure:
+                                raise failure[0]
     finally:
         # The sentinel put must not block forever when the fetcher
         # died with a full queue (it will never drain it).
