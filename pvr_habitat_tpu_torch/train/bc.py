@@ -321,7 +321,9 @@ def _run(flags, mode, device):
     # as the reference does (every rank draws the same global starts and
     # trains on its columns); the unroll gather runs on the device that
     # holds the dataset.  ``--train_chunk`` saves dispatches in the JAX
-    # package only and changes nothing here.
+    # package and changes nothing here: on one card ``make_train_step``
+    # replays the whole step from one CUDA graph instead (eager on a
+    # mesh of more ranks).
     step_fn = bc_step.make_train_step(opt, batch_norm=flags.batch_norm,
                                       conv_policy=conv_policy,
                                       max_grad_norm=flags.max_grad_norm,

@@ -13,7 +13,10 @@ Written as functions of flat dicts, like the JAX transform, so that the
 state is the JAX package's layout (``count``, ``square_avg`` and
 ``momentum_buf`` keyed by parameter name) and checkpoints interoperate.
 ``count`` is a host integer: the lr factor is computed on the host in
-float32, as the JAX transform computes it on the device.
+float32, as the JAX transform computes it on the device, and applied
+from a 0-d float32 tensor on the params' device, so that a CUDA graph
+of the step reads it from a buffer its caller fills before each replay
+(``train/bc_step.py``).
 """
 
 from typing import NamedTuple
@@ -60,7 +63,9 @@ class RMSpropTorch:
         return np.float32(self.base_lr) * factor
 
     @torch.no_grad()
-    def update(self, grads, state):
+    def update(self, grads, state, lr=None):
+        """``lr``: the step's lr, a 0-d float32 tensor on the grads'
+        device; by default ``lr(state.count)`` in a new one."""
         alpha = self.alpha
         sq = {k: alpha * state.square_avg[k] + (1.0 - alpha) * g * g
               for k, g in grads.items()}
@@ -71,8 +76,12 @@ class RMSpropTorch:
             buf = {k: self.momentum * state.momentum_buf[k] + d
                    for k, d in step_dir.items()}
             step_dir = buf
-        lr = float(self.lr(state.count))
-        updates = {k: -lr * d for k, d in step_dir.items()}
+        if lr is None:
+            lr = torch.full((), float(self.lr(state.count)),
+                            dtype=torch.float32,
+                            device=next(iter(grads.values())).device)
+        neg_lr = -lr
+        updates = {k: neg_lr * d for k, d in step_dir.items()}
         return updates, RMSpropTorchState(state.count + 1, sq, buf)
 
 

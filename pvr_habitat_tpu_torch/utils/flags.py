@@ -113,9 +113,9 @@ def build_parser():
     parser.add_argument("--train_chunk", type=int, default=0,
                         help="Accepted for compatibility with the JAX "
                              "package, where it runs that many epochs in one "
-                             "dispatch; it has no effect here (eager PyTorch "
-                             "runs one step per epoch, with the same "
-                             "losses).")
+                             "dispatch; it has no effect here (the port "
+                             "runs one step per epoch, on one card replayed "
+                             "from a CUDA graph, with the same losses).")
     return parser
 
 

@@ -108,15 +108,19 @@ def test_train_step_spans_once_a_step():
             state, _ = step(state, sampler.gather_unrolls(data, starts, 5))
     recorded = profiling.spans(first)
     names = [s.name for s in recorded]
-    for name in ("data.gather", "train.forward", "train.backward",
-                 "train.clip", "train.optimizer", "policy.lstm"):
+    for name in ("data.gather", "train.step", "train.forward",
+                 "train.backward", "train.clip", "train.optimizer",
+                 "policy.lstm"):
         assert names.count(name) == 2, name
+    assert "train.graph" not in names       # the CPU's step is eager
     by_id = {s.id: s for s in recorded}
     for s in recorded:
         if s.name == "policy.lstm":
             assert by_id[s.parent].name == "train.forward"
-        elif s.name.startswith("train."):
+        elif s.name == "train.step":
             assert s.parent is None
+        elif s.name.startswith("train."):
+            assert by_id[s.parent].name == "train.step"
     order = [n for n in names if n.startswith("train.")][:4]
     assert order == ["train.forward", "train.backward", "train.clip",
                      "train.optimizer"]
