@@ -21,6 +21,9 @@ core in the input dtype.  Its core takes the same ``fused`` rule with
 unscaled q; off the kernel it is the int8 block's own core (q times
 1/sqrt(head) rounded to q's dtype, an f32 softmax), not
 ``multihead_attention``'s.
+
+Spans (``utils/profiling.py``): ``vit.attn`` and ``vit.mlp`` around the
+two halves of every ``timm_block``; the int8 block has none.
 """
 
 import math
@@ -33,6 +36,7 @@ from pvr_habitat_tpu_torch.ops import image as im
 from pvr_habitat_tpu_torch.ops import quantize as qz
 from pvr_habitat_tpu_torch.ops.cuda import attention as attn
 from pvr_habitat_tpu_torch.utils.platform import resolve_device
+from pvr_habitat_tpu_torch.utils.profiling import span
 
 MAE_CONFIGS = {
     # embed_dim, depth, num_heads, patch
@@ -113,19 +117,23 @@ def multihead_attention(x, wqkv, bqkv, wo, bo, num_heads, fused="off"):
 
 
 def timm_block(x, p, prefix, num_heads, eps=1e-6, gelu=cm.gelu, fused="off"):
-    """timm ViT Block: pre-LN attention + MLP with residuals."""
-    y = cm.layer_norm(x, p, f"{prefix}.norm1", eps=eps)
-    y = multihead_attention(
-        y, p[f"{prefix}.attn.qkv.weight"], p[f"{prefix}.attn.qkv.bias"],
-        p[f"{prefix}.attn.proj.weight"], p[f"{prefix}.attn.proj.bias"],
-        num_heads, fused=fused)
-    x = x + y
-    y = cm.layer_norm(x, p, f"{prefix}.norm2", eps=eps)
-    n, l, _ = y.shape
-    y = y.reshape(n * l, -1)
-    y = gelu(cm.linear(y, p, f"{prefix}.mlp.fc1"))
-    y = cm.linear(y, p, f"{prefix}.mlp.fc2")
-    return x + y.reshape(n, l, -1)
+    """timm ViT Block: pre-LN attention + MLP with residuals, each half
+    (its norm, its products and its residual add) in a span of its own,
+    ``vit.attn`` and ``vit.mlp``."""
+    with span("vit.attn"):
+        y = cm.layer_norm(x, p, f"{prefix}.norm1", eps=eps)
+        y = multihead_attention(
+            y, p[f"{prefix}.attn.qkv.weight"], p[f"{prefix}.attn.qkv.bias"],
+            p[f"{prefix}.attn.proj.weight"], p[f"{prefix}.attn.proj.bias"],
+            num_heads, fused=fused)
+        x = x + y
+    with span("vit.mlp"):
+        y = cm.layer_norm(x, p, f"{prefix}.norm2", eps=eps)
+        n, l, _ = y.shape
+        y = y.reshape(n * l, -1)
+        y = gelu(cm.linear(y, p, f"{prefix}.mlp.fc1"))
+        y = cm.linear(y, p, f"{prefix}.mlp.fc2")
+        return x + y.reshape(n, l, -1)
 
 
 # -----------------------------------------------------------------------------
