@@ -32,7 +32,11 @@ Phases, each fatal on failure:
    shapes, on the strided qkv views the service passes, in bf16 (batch
    256, within one ulp, per-row relative error and cosine) and f32
    (batch 8, 1e-5), and at the ragged (2, 4, 17, 16) and the bf16
-   tiling's edges (``ATTENTION_EDGES``), contiguous;
+   tiling's edges (``ATTENTION_EDGES``), contiguous; the LayerNorm kernel
+   against ``layer_norm_ref`` at the mae_base and mae_huge shapes (batch
+   256 bf16: 99.9% of rows bit for bit, every other row at a bf16
+   rounding boundary; batch 8 f32: 1e-6 a row) and on CLIP ViT-B/32's
+   strided CLS rows (``ln_post``, eps 1e-5), read in place;
 4. slice, ResNet-50: ``EmbeddingNet("resnet50", compute_dtype=bf16)``
    with ``fused`` set to v1, v2 and hybrid answers a batch of 1, a batch
    of 3 and ``embed_batches`` over 1024 frames at batch 256; each answer
@@ -40,12 +44,15 @@ Phases, each fatal on failure:
    must show the kernels ran (16 / 13 / 3+7 launches per forward);
 5. slice, MAE: ``EmbeddingNet("mae_base", compute_dtype=bf16)`` on its
    card default route, ``attention``, answers the same requests, held
-   against the f32 ``fused="off"`` path; 12 attention launches per
+   against the f32 ``fused="off"`` path with the plain LayerNorm
+   (``plain_layer_norm``); 12 attention and 25 LayerNorm launches per
    forward;
 6. times: each kernel's median ms per shape beside its bound, its plain
    version and one library call of the same function (cuDNN bf16
    channels_last ``F.conv2d`` for a block, ``scaled_dot_product_attention``
-   for attention); end-to-end frames/s for every route of both paths;
+   for attention, ``F.layer_norm`` for LayerNorm); end-to-end frames/s
+   for every route of both paths (the LayerNorm kernel runs on both MAE
+   routes);
 7. slice, BC trainer and online eval on ResNet-50 embeddings (f32, the
    CLIs' default, so the f32 engine of ``fused_bottleneck``): the kernel
    against its plain version at the slice's batch sizes (1, 4, 32); expert
@@ -70,7 +77,8 @@ Phases, each fatal on failure:
    layouts; each encoder of ``ZOO`` loads them, and its f32 ``off`` path
    on the card is held against the CPU (8 frames, 1e-3); on its card
    default route in bf16 (``v1`` for the uber fusion, 45 launches a
-   forward; ``off`` and no launch for the rest) it answers phase 4's
+   forward; ``off`` for the rest, with 26 LayerNorm launches a clip_vit
+   forward and none for the convnets) it answers phase 4's
    requests, held against the f32 ``off`` path; the uber fusion runs in
    f32 on ``v1`` at batch 1 and 4 against ``off`` (1e-4); frames/s at
    batch 256 bf16 and a profile of the uber ``v1`` forward; then the conv
@@ -86,8 +94,9 @@ Phases, each fatal on failure:
    maskrcnn_l3 from phase 8's checkpoints)
    ``ShardedEmbedder(quantize=True).embed_all`` over phase 4's frames at
    batch 256, gated on per-row cosine against the f32 ``off`` path and on
-   its launches (12 ``fused_attention`` a mae_base forward, calibration
-   included); the int8 forward on the card against the CPU on the same
+   its launches (12 ``fused_attention`` and 25 ``layer_norm`` a mae_base
+   forward, calibration included); the int8 forward on the card against
+   the CPU on the same
    inputs and scales (cosine > 0.9999); int8 frames/s beside the bf16
    default route's; a profile of the resnet50 int8 forward split into
    im2col copies, ``_int_mm``, quantize and dequant, and the top kernels
@@ -99,7 +108,8 @@ Phases, each fatal on failure:
    (``tools/serve_embeddings.py``) in this process serves resnet50 bf16
    and f32 and mae_base bf16 on their card default routes to 4
    concurrent clients of 50 requests of 1-8 frames; launches gated per
-   micro-batch (16 ``fused_bottleneck``, 12 ``fused_attention``), every
+   micro-batch (16 ``fused_bottleneck``; 12 ``fused_attention`` and 25
+   ``layer_norm``), every
    reply held against a direct ``EmbeddingNet`` call (f32, 1e-3) or the
    f32 off path (bf16, cosine > 0.99); round-trip p50/p99, the
    micro-batch sizes, frames/s and the f32 launch-shape search's time;
@@ -120,8 +130,8 @@ Phases, each fatal on failure:
    ``mae_base`` files, ``tools/convert_checkpoint.py`` converts them on
    the card, and ``EmbeddingNet(compute_dtype=bf16)`` from the converted
    file answers as the one from the original (pretrained path), equal,
-   with 16 ``fused_bottleneck`` / 12 ``fused_attention`` launches a
-   forward; (b) ``tools/sweep.py`` over one FakeImageNav scene
+   with 16 ``fused_bottleneck`` / 12 ``fused_attention`` and 25
+   ``layer_norm`` launches a forward; (b) ``tools/sweep.py`` over one FakeImageNav scene
    (``SWEEP_GRID``): the embedding sweep, resnet50 (``main_bc_2``) and
    random (``main_bc_1``) BC jobs and a finetune job through the local
    executor, each job's launches gated (16 a resnet50 forward), a
@@ -142,6 +152,7 @@ object with the kernels' numbers, and the verdict
 prints no result.
 """
 
+import contextlib
 import json
 import math
 import statistics
@@ -183,7 +194,21 @@ ATTENTION = [("mae_base", 12, 197, 64, 12),
 # past 17 tiles that takes two passes over the keys.
 ATTENTION_EDGES = [(2, 4, 128, 64), (2, 4, 256, 64), (2, 4, 272, 80),
                    (2, 4, 600, 64)]
-MAE_LAUNCHES = {"fused_attention": 12}
+# LayerNorm launches a forward: an MAE's two a block and its final norm
+# (mae_base 25, mae_huge 65); CLIP ViT-B/32's two a block, ln_pre and
+# ln_post (26).
+MAE_LAUNCHES = {"fused_attention": 12, "layer_norm": 25}
+# LayerNorm at batch 256: (config, L, D, eps, launches a forward), and
+# CLIP ViT-B/32's tokens a frame, whose ln_post reads the strided CLS rows
+LAYER_NORM = [("mae_base", 197, 768, 1e-6, 25),
+              ("mae_huge", 257, 1280, 1e-6, 65)]
+CLIP_TOKENS = 50
+# bf16 gate of the LayerNorm kernel, that of tests/test_torch_cuda_kernels.py:
+# at least LN_SAME_ROWS of the rows bit for bit the plain version's, and
+# every row whose exact mean and variance lie further than LN_MARGIN
+# (relative) from a bf16 rounding boundary; f32: each row's worst error
+# over its largest value within LN_F32_TOL.
+LN_SAME_ROWS, LN_MARGIN, LN_F32_TOL = 0.999, 1e-5, 1e-6
 # Phase 7, the BC slice: expert data of one PointNav scene, enough of it
 # that sample_with_minimum_distance finds 32 starts 100 apart (n > 3101).
 BC_ENV = "FakePointNav-apartment_0"
@@ -200,7 +225,7 @@ SPLIT_BLOCKS = ("layer3.1", "layer4.0", "layer4.1")
 # kernel launches per forward on it).  An uber fusion runs three trunks:
 # 13 v1 launches for moco_aug_l3, 16 for moco_aug_l4, 16 for moco_aug.
 ZOO = [("moco_aug_uber_345", "v1", {"fused_bottleneck": 45}),
-       ("clip_vit", "off", {}), ("clip_rn50", "off", {}),
+       ("clip_vit", "off", {"layer_norm": 26}), ("clip_rn50", "off", {}),
        ("maskrcnn_l3", "off", {})]
 ZOO_CPU_FRAMES = 8             # frames of the f32 forward, card vs CPU
 FINETUNE_STEPS = 5             # conv-policy train steps, card vs CPU
@@ -210,11 +235,11 @@ FINETUNE_STEPS = 5             # conv-policy train steps, card vs CPU
 INT8 = [("resnet50", "off", {}, 0.99),
         ("clip_rn50", "off", {}, 0.98),
         ("maskrcnn_l3", "off", {}, 0.98),
-        ("mae_base", "attention", {"fused_attention": 12}, 0.98)]
+        ("mae_base", "attention", MAE_LAUNCHES, 0.98)]
 INT8_CPU_FRAMES = 8            # frames of the int8 forward, card vs CPU
 # the whole int8 MAE forward, card vs CPU (its blocks are held at 0.9999
 # one by one; phase 9 prints the same forward on the "off" route, no
-# kernel, card vs CPU, beside it)
+# attention kernel, card vs CPU, beside it)
 MAE_WHOLE_GATE = 0.999
 # launches per forward of the CLI's resnet50 runs: --sharded_embed runs
 # f32 on v1, --quantize_embed int8 with no kernel
@@ -237,7 +262,7 @@ F32_INSTANCES = {"bottleneck_kernel<ScalarEngine,0>",
 # their requests of 1 to SERVE_MAX_FRAMES frames, the server's defaults.
 SERVE = [("resnet50", "bfloat16", {"fused_bottleneck": 16}),
          ("resnet50", "float32", {"fused_bottleneck": 16}),
-         ("mae_base", "bfloat16", {"fused_attention": 12})]
+         ("mae_base", "bfloat16", MAE_LAUNCHES)]
 SERVE_CLIENTS = 4
 SERVE_REQUESTS = 50
 SERVE_MAX_FRAMES = 8
@@ -249,7 +274,7 @@ RANK_EMBED_FRAMES = 256        # frames embed_local splits over the ranks
 # Phase 11, the sweep, checkpoint conversion and tensor parallelism.
 # Conversion: (zoo name, launches a forward of its bf16 card default route).
 CONVERT = [("moco_aug", {"fused_bottleneck": 16}),
-           ("mae_base", {"fused_attention": 12})]
+           ("mae_base", MAE_LAUNCHES)]
 CONVERT_FRAMES = 8
 # The sweep's one-scene grid (cut: 2 epochs of B 8 x T 20, one eval
 # episode of <= 30 steps a point; the default grid's 35 x 5 x 10 jobs
@@ -261,7 +286,8 @@ SWEEP_GRID = dict(batch_size=[8], unroll_length=[20], eval_frequency=[1],
                   n_episodes_test=[1], max_episode_steps=[30])
 TP_STEPS = 5                   # tensor-parallel steps held against one process
 TP_EPISODE_STEPS = 20          # their eval episodes' limit
-# kernel -> (TPU kernel it replaces, CUDA source)
+# kernel -> (TPU kernel it replaces, CUDA source); LayerNorm replaces none
+# (the JAX package leaves it to XLA's fusion)
 KERNELS = {
     "fused_bottleneck": (
         "pvr_habitat_tpu/ops/pallas/fused_bottleneck.py:93",
@@ -272,6 +298,8 @@ KERNELS = {
     "fused_attention": (
         "pvr_habitat_tpu/ops/pallas/attention.py:149",
         "pvr_habitat_tpu_torch/ops/cuda/csrc/fused_attention.cu"),
+    "layer_norm": (
+        None, "pvr_habitat_tpu_torch/ops/cuda/csrc/layer_norm.cu"),
 }
 
 
@@ -322,12 +350,32 @@ def attention_cost(n, h, l, d, itemsize):
 
 
 def count_launches(fb, fa):
-    return {**fb.launches, **fa.launches}
+    from pvr_habitat_tpu_torch.ops.cuda import layer_norm as ln
+
+    return {**fb.launches, **fa.launches, **ln.launches}
 
 
 def reset_launches(fb, fa):
+    from pvr_habitat_tpu_torch.ops.cuda import layer_norm as ln
+
     fb.reset_launches()
     fa.reset_launches()
+    ln.reset_launches()
+
+
+@contextlib.contextmanager
+def plain_layer_norm():
+    """While open, ``models/common.py::layer_norm`` runs the plain version
+    (``layer_norm_ref``) on the card too: a reference forward then shares
+    no LayerNorm kernel with the forward held against it."""
+    from pvr_habitat_tpu_torch.ops.cuda import layer_norm as ln
+
+    kernel = ln.layer_norm
+    ln.layer_norm = ln.layer_norm_ref
+    try:
+        yield
+    finally:
+        ln.layer_norm = kernel
 
 
 def check_bottleneck_kernels(torch, fb, params, activations, device,
@@ -439,6 +487,81 @@ def check_attention_kernel(torch, fa, gen, max_err):
                     f"max row rel err {rel:.3g}, min row cosine {cos:.6f}")
         print(f"fused_attention {shape} {str(dtype)[6:]}"
               f"{' strided' if strided else ''}: {gate}", flush=True)
+
+
+def layer_norm_inputs(torch, gen, shape, dtype):
+    """Rows (z + m) * s with an offset m ~ N(0, 1) and a scale
+    s = exp(N(0, 1)) of their own; the affine in f32 as the benchmark
+    draws it, 1 + N(0, 0.05) and N(0, 0.05)."""
+    gen.manual_seed(SEED + sum(shape))
+
+    def randn(*s):
+        return torch.randn(*s, device="cuda", generator=gen)
+
+    rows = (*shape[:-1], 1)
+    x = (randn(*shape) + randn(*rows)) * randn(*rows).exp()
+    return (x.to(dtype), 1 + 0.05 * randn(shape[-1]),
+            0.05 * randn(shape[-1]))
+
+
+def layer_norm_gate(torch, x, got, want):
+    """The card tests' gate (``LN_*``); returns what it read."""
+    d = x.shape[-1]
+    if got.shape != x.shape or got.dtype != x.dtype \
+            or not torch.isfinite(got).all():
+        raise AssertionError(f"layer_norm {tuple(x.shape)}: {got.shape} "
+                             f"{got.dtype}")
+    err = (got.float() - want.float()).abs().max().item()
+    if x.dtype == torch.float32:
+        rel = ((got - want).abs().amax(-1)
+               / want.abs().amax(-1)).max().item()
+        if rel > LN_F32_TOL:
+            raise AssertionError(f"layer_norm {tuple(x.shape)} f32: row "
+                                 f"error {rel}")
+        return err, f"max_abs_err {err:.3g}, max row err {rel:.3g} (1e-6)"
+
+    def near(v):    # where v's bf16 rounding changes within LN_MARGIN
+        r = v.to(torch.bfloat16)
+        return (((v * (1 + LN_MARGIN)).to(torch.bfloat16) != r)
+                | ((v * (1 - LN_MARGIN)).to(torch.bfloat16) != r))
+
+    differs = (got.reshape(-1, d) != want.reshape(-1, d)).any(1)
+    rows = x.reshape(-1, d).double()
+    away = differs & ~(near(rows.mean(1)) | near(rows.var(1, unbiased=False)))
+    same = 1 - differs.float().mean().item()
+    if same < LN_SAME_ROWS or away.any():
+        raise AssertionError(f"layer_norm {tuple(x.shape)} bf16: rows the "
+                             f"same {same}, {int(away.sum())} differ away "
+                             f"from a rounding boundary")
+    return err, (f"rows bit for bit the same {same:.4%} (gate "
+                 f"{LN_SAME_ROWS:.1%}), every other row at a rounding "
+                 f"boundary; max_abs_err {err:.3g}")
+
+
+def check_layer_norm_kernel(torch, ln, gen, max_err):
+    """The kernel against ``layer_norm_ref`` at the MAE shapes (batch 256
+    in bf16, 8 in f32) and on CLIP ViT-B/32's strided CLS rows (ln_post,
+    eps 1e-5), read in place."""
+    cases = []
+    for config, l, d, eps, _ in LAYER_NORM:
+        cases += [(config, (256, l, d), torch.bfloat16, eps),
+                  (config, (8, l, d), torch.float32, eps)]
+    cases += [("clip_vit ln_post", (256, CLIP_TOKENS, 768), dtype, 1e-5)
+              for dtype in (torch.bfloat16, torch.float32)]
+    for label, shape, dtype, eps in cases:
+        x, w, b = layer_norm_inputs(torch, gen, shape, dtype)
+        if label.startswith("clip"):
+            x = x[:, 0, :]
+            if ln.kernel_rows(x, w, b).data_ptr() != x.data_ptr():
+                raise AssertionError("layer_norm copies the CLS rows")
+        got = ln.layer_norm(x, w, b, eps)
+        torch.cuda.synchronize()
+        err, gate = layer_norm_gate(torch, x, got,
+                                    ln.layer_norm_ref(x, w, b, eps))
+        if dtype == torch.float32:
+            max_err["layer_norm"] = max(max_err["layer_norm"], err)
+        print(f"layer_norm {label} {tuple(x.shape)} {str(dtype)[6:]} eps "
+              f"{eps:g}: {gate}", flush=True)
 
 
 def drive_service(torch, fb, fa, net, frames, ref, per_forward, label):
@@ -567,6 +690,37 @@ def time_attention_kernel(torch, F, fa, gen, totals):
               f"({'bytes' if bytes_ms >= flop_ms else 'operations'}: "
               f"{nbytes / 1e6:.1f} MB, {flop / 1e9:.1f} GFLOP) "
               f"plain {plain_ms:.4f} library (sdpa) {library_ms:.4f}",
+              flush=True)
+
+
+def time_layer_norm_kernel(torch, F, ln, gen, totals):
+    """Per call at batch 256 bf16 for each MAE shape (CUDA events over 20
+    calls, median of 5), beside the byte bound (x read once, y written
+    once), the plain version, ``F.layer_norm`` (bf16 affine) and a copy of
+    the same bytes, yardsticks the port never calls; the JSON totals are
+    per mae_base forward (25 launches)."""
+    def per_call(fn, reps=5, calls=20):
+        return time_ms(torch, lambda: [fn() for _ in range(calls)],
+                       reps=reps) / calls
+
+    for config, l, d, eps, count in LAYER_NORM:
+        x, w, b = layer_norm_inputs(torch, gen, (256, l, d), torch.bfloat16)
+        wb, bb, copy = w.to(x.dtype), b.to(x.dtype), torch.empty_like(x)
+        ms = per_call(lambda: ln.layer_norm(x, w, b, eps))
+        plain_ms = per_call(lambda: ln.layer_norm_ref(x, w, b, eps), reps=3,
+                            calls=2)
+        library_ms = per_call(lambda: F.layer_norm(x, (d,), wb, bb, eps))
+        copy_ms = per_call(lambda: copy.copy_(x))
+        nbytes = 2 * x.numel() * x.element_size()
+        bound = nbytes / PEAK_BYTES_PER_S * 1e3
+        if config == "mae_base":
+            add_time(totals, "layer_norm", count, ms=ms, plain_ms=plain_ms,
+                     library_ms=library_ms, bound_ms=bound, bytes_ms=bound,
+                     flop_ms=0.0)
+        print(f"time layer_norm {config} {tuple(x.shape)} (x{count}/forward):"
+              f" ms {ms:.4f} bound {bound:.4f} (bytes: {nbytes / 1e6:.1f} MB;"
+              f" {bound / ms:.1%} of it) plain {plain_ms:.4f} library "
+              f"(F.layer_norm) {library_ms:.4f} copy {copy_ms:.4f}",
               flush=True)
 
 
@@ -778,7 +932,6 @@ class StepCounter:
 def quiet(fn, *args, **kwargs):
     """Run a trainer or tool with its progress prints kept off the output
     (its own exceptions still propagate)."""
-    import contextlib
     import io
     import warnings
 
@@ -838,7 +991,8 @@ def bc_slice(torch, fb, fa, device, smi, workdir):
         seconds = time.perf_counter() - start
         counts = count_launches(fb, fa)
         want = {"fused_bottleneck": 16 * forwards.count,
-                "fused_bottleneck_flat": 0, "fused_attention": 0}
+                "fused_bottleneck_flat": 0, "fused_attention": 0,
+                "layer_norm": 0}
         if counts != want or not forwards.count:
             raise AssertionError(f"{label}: launches {counts}, "
                                  f"{forwards.count} encoder forwards")
@@ -1399,13 +1553,13 @@ def int8_card_vs_cpu(torch, emb, frames, name):
     plain = ""
     if blocks:
         # the reading behind MAE_WHOLE_GATE: the same forward on the
-        # "off" route (the int8 block's einsum core, no kernel), card vs
-        # CPU; reported, not gated
+        # "off" route (the int8 block's einsum core, no attention kernel),
+        # card vs CPU; reported, not gated
         off_cpu, _ = emb._int8.apply(params_cpu, x, emb._scales, fused="off")
         off_card, _ = emb._int8.apply(emb.params, x.to(device), emb._scales,
                                       fused="off")
-        plain = (f"; route off (no kernel), card vs CPU: min cosine "
-                 f"{row_cosine(torch, off_card.cpu(), off_cpu):.7f}")
+        plain = (f"; route off (no attention kernel), card vs CPU: min "
+                 f"cosine {row_cosine(torch, off_card.cpu(), off_cpu):.7f}")
     print(f"{name} int8, card vs CPU ({len(x)} frames, the same scales): "
           f"min cosine {cos:.7f} (gate {gate}), max_abs_err {err:.3g}"
           + (f"; {len(blocks)} blocks each from the CPU's input: min "
@@ -1669,10 +1823,11 @@ def serve_slice(torch, fb, fa, device, smi):
                     f"{np.abs(got - direct).max():.3g} (1e-3)")
         else:
             if name not in refs:
-                refs[name] = EmbeddingNet(
-                    name, pretrained=False, compute_dtype=torch.float32,
-                    fused="off", device=device).embed_batches(frames,
-                                                              BULK_BATCH)
+                with plain_layer_norm():
+                    refs[name] = EmbeddingNet(
+                        name, pretrained=False, compute_dtype=torch.float32,
+                        fused="off", device=device).embed_batches(
+                            frames, BULK_BATCH)
             cos = row_cosine(torch, torch.from_numpy(got),
                              torch.from_numpy(refs[name]))
             if cos <= 0.99:
@@ -2272,6 +2427,7 @@ def main():
     from pvr_habitat_tpu_torch.ops.cuda import attention as fa
     from pvr_habitat_tpu_torch.ops.cuda import build
     from pvr_habitat_tpu_torch.ops.cuda import fused_bottleneck as fb
+    from pvr_habitat_tpu_torch.ops.cuda import layer_norm as ln
     from pvr_habitat_tpu_torch.utils.platform import resolve_device
 
     device = resolve_device()          # cuda; sets TF32 off
@@ -2316,6 +2472,7 @@ def main():
     max_err = {k: 0.0 for k in KERNELS}
     check_bottleneck_kernels(torch, fb, params, activations, device, max_err)
     check_attention_kernel(torch, fa, gen, max_err)
+    check_layer_norm_kernel(torch, ln, gen, max_err)
     print(f"kernel phase {time.perf_counter() - t0:.1f} s")
 
     t0 = phase("4 slice: EmbeddingNet resnet50 bf16")
@@ -2341,7 +2498,8 @@ def main():
     t0 = phase("5 slice: EmbeddingNet mae_base bf16")
     mae32 = EmbeddingNet("mae_base", pretrained=False,
                          compute_dtype=torch.float32, fused="off")
-    mae_ref = f32_reference(torch, mae32, frames)
+    with plain_layer_norm():
+        mae_ref = f32_reference(torch, mae32, frames)
     del mae32
     mae = EmbeddingNet("mae_base", pretrained=False,
                        compute_dtype=torch.bfloat16)
@@ -2359,6 +2517,7 @@ def main():
               for k in KERNELS}
     time_bottleneck_kernels(torch, F, fb, params, activations, device, totals)
     time_attention_kernel(torch, F, fa, gen, totals)
+    time_layer_norm_kernel(torch, F, ln, gen, totals)
     n = 256
     dev_frames = torch.from_numpy(frames[:n]).to(device)
     e2e = [("resnet50", route, nets.get(route)) for route in
@@ -2458,7 +2617,8 @@ def main():
     } for k in KERNELS]}
     print("kernel times are per forward at batch 256 bf16: ResNet-50 on the "
           "route that runs the kernel on every block it can (v1: 16 "
-          "launches, v2: 13), mae_base on attention (12 launches)")
+          "launches, v2: 13), mae_base on attention (fused_attention 12 "
+          "launches, layer_norm 25)")
     print(smi)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

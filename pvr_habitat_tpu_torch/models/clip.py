@@ -15,8 +15,10 @@ the (width, output_dim) matrix applied as ``y @ proj``, not a Linear):
   stride is an avgpool (conv strides are all 1), and an AttentionPool2d
   head (mean token as query, f32 softmax) to 1024.
 
-Both run on ``F.conv2d`` and ``torch.matmul`` only (routes ``("off",)``),
-as the JAX package leaves them to XLA.  ``clip_rn50_apply_int8`` is the
+Both run on ``F.conv2d`` and ``torch.matmul`` (routes ``("off",)``), as
+the JAX package leaves them to XLA; the ViT's LayerNorms are
+``common.layer_norm``, the kernel of ``ops/cuda/layer_norm.py`` on the
+card.  ``clip_rn50_apply_int8`` is the
 RN50 tower's W8A8 serving path (``ops/quantize.py``): convs int8, the
 attention pool in the input dtype (one query, so no kernel).
 """

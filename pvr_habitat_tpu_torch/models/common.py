@@ -20,6 +20,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from pvr_habitat_tpu_torch.ops.cuda import layer_norm as ln
+
 
 def conv2d(x, w, stride=1, padding=0, bias=None):
     """NHWC conv with OIHW weights and symmetric integer padding."""
@@ -94,19 +96,10 @@ def flatten_nchw(y):
 
 
 def layer_norm(x, p, prefix, eps=1e-6):
-    """LayerNorm over the last axis with the JAX package's rounding points:
-    the mean and the biased variance accumulate in f32 and are rounded to
-    x's dtype, then ``(x - mean) * rsqrt(var + eps)`` runs in x's dtype
-    with eps rounded to it (``F.layer_norm`` would stay in f32).  The rsqrt
-    is taken in f32 and rounded once, as XLA takes it (torch's bf16 rsqrt
-    on the CPU rounds the sqrt first)."""
-    dt = x.dtype
-    xf = x.float()
-    mean = xf.mean(dim=-1, keepdim=True).to(dt)
-    var = xf.var(dim=-1, unbiased=False, keepdim=True).to(dt)
-    inv = torch.rsqrt((var + torch.tensor(eps, dtype=dt)).float()).to(dt)
-    y = (x - mean) * inv
-    return y * p[f"{prefix}.weight"].to(dt) + p[f"{prefix}.bias"].to(dt)
+    """LayerNorm over the last axis with the weight and bias under
+    ``prefix``: ``ops/cuda/layer_norm.py``'s kernel on the card, its plain
+    version (the JAX package's rounding points) on the CPU."""
+    return ln.layer_norm(x, p[f"{prefix}.weight"], p[f"{prefix}.bias"], eps)
 
 
 def gelu(x):

@@ -10,7 +10,10 @@ returns numpy squeezed like the reference, train mode a tensor.
 ResNet's blocks ``off`` (``F.conv2d``), ``v1``, ``v2`` or ``hybrid`` (the
 Hopper kernels of ``ops/cuda/fused_bottleneck.py``); for an MAE ViT's
 attention cores ``off`` (the einsum core) or ``attention`` (the kernel of
-``ops/cuda/attention.py``).  On the card a frozen encoder defaults to its
+``ops/cuda/attention.py``).  The route names the kernels it chooses
+between; kernels with no plain alternative on the card run on every
+route there: a ViT's LayerNorms (``ops/cuda/layer_norm.py``) launch their
+kernel on ``off`` too.  On the card a frozen encoder defaults to its
 first kernel route, ``v1`` or ``attention``, which runs every block it
 can through the kernel; on the CPU and in train mode the default is
 ``off``, since on the CPU the kernels' plain versions only repeat the

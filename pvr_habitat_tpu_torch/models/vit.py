@@ -13,7 +13,9 @@ core that meets ``ops/cuda/attention.kernel_applies`` (bf16, L >= 128)
 through the Hopper kernel with unscaled q, since the kernel scales
 internally, and leaves every other core on ``off``.  The projections
 and the MLP are plain products outside any kernel, as in the JAX
-package, and stay ``torch.matmul``.
+package, and stay ``torch.matmul``.  Every LayerNorm, on either route,
+is ``common.layer_norm``: the kernel of ``ops/cuda/layer_norm.py`` on
+the card, its plain version on the CPU.
 
 ``mae_apply_int8`` is the W8A8 serving path (``ops/quantize.py``): the
 patch embedding and every block linear int8, LayerNorm and the attention

@@ -45,6 +45,12 @@ SIGNATURES = {
         "fused_attention_smem_bytes": ([_INT] * 3, ctypes.c_longlong),
         "fused_attention_error_string": ([_INT], ctypes.c_char_p),
     },
+    "layer_norm": {
+        "layer_norm_launch":
+            ([_INT, _INT, _PTR, ctypes.c_longlong] + [_PTR] * 3
+             + [ctypes.c_longlong, _INT, ctypes.c_float, _PTR], _INT),
+        "layer_norm_error_string": ([_INT], ctypes.c_char_p),
+    },
 }
 
 

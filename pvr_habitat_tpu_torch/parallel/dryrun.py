@@ -190,8 +190,9 @@ def _multichip(args, device):
 def _launches():
     from pvr_habitat_tpu_torch.ops.cuda import attention as fa
     from pvr_habitat_tpu_torch.ops.cuda import fused_bottleneck as fb
+    from pvr_habitat_tpu_torch.ops.cuda import layer_norm as ln
 
-    return {**fb.launches, **fa.launches}
+    return {**fb.launches, **fa.launches, **ln.launches}
 
 
 def _embed(args, device):

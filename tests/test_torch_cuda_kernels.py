@@ -1,6 +1,6 @@
-"""The Hopper kernels (fused bottleneck, fused attention) vs. their plain
-PyTorch versions, on the card.  Imports no JAX, so it runs where only PyTorch is
-installed:
+"""The Hopper kernels (fused bottleneck, fused attention, LayerNorm) vs.
+their plain PyTorch versions, on the card.  Imports no JAX, so it runs where
+only PyTorch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda_kernels.py
@@ -15,6 +15,7 @@ from pvr_habitat_tpu_torch.models import resnet
 from pvr_habitat_tpu_torch.ops.cuda import attention as fa
 from pvr_habitat_tpu_torch.ops.cuda import build
 from pvr_habitat_tpu_torch.ops.cuda import fused_bottleneck as fb
+from pvr_habitat_tpu_torch.ops.cuda import layer_norm as ln
 from pvr_habitat_tpu_torch.ops.fold_bn import fold_resnet_bn
 
 # f32 with TF32 off: only the summation order differs.  bf16: y1 and y2
@@ -273,3 +274,116 @@ def test_fused_attention_reads_strided_qkv_views():
     torch.testing.assert_close(got, want, atol=0, rtol=0)
     # the output's memory is (N, L, H, D): the head merge is a view
     assert got.transpose(1, 2).is_contiguous()
+
+
+# LayerNorm.  bf16: the kernel rounds where the plain version rounds, and
+# only its f32 sums run in another order, so a row may differ only where
+# its mean or variance lies within a few f32 ulps of a bf16 rounding
+# boundary: rows whose exact mean and variance lie further than
+# LN_MARGIN (relative) from one must be bit for bit the same, and at least
+# LN_SAME_ROWS of all rows.  f32: the order of the sums alone moves the
+# mean by an ulp or so, which the normalisation scales by |mean| / std
+# (at most about 4 here): each row's worst error over its largest value.
+LN_SAME_ROWS = 0.999
+LN_MARGIN = 1e-5
+LN_F32_TOL = 1e-6
+
+
+def _ln_inputs(shape, dtype, seed, wdtype=torch.float32):
+    """Rows (z + m) * s with an offset m ~ N(0, 1) and a scale
+    s = exp(N(0, 1)) of their own; the affine as the benchmark draws it,
+    1 + N(0, 0.05) and N(0, 0.05)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*s):
+        return torch.randn(*s, device="cuda", generator=gen)
+
+    d = shape[-1]
+    rows = (*shape[:-1], 1)
+    x = (randn(*shape) + randn(*rows)) * randn(*rows).exp()
+    return (x.to(dtype), (1 + 0.05 * randn(d)).to(wdtype),
+            (0.05 * randn(d)).to(wdtype))
+
+
+def _near_a_bf16_boundary(v):
+    """Where the bf16 rounding of ``v`` (f64) changes within LN_MARGIN."""
+    r = v.to(torch.bfloat16)
+    return ((v * (1 + LN_MARGIN)).to(torch.bfloat16) != r) | (
+        (v * (1 - LN_MARGIN)).to(torch.bfloat16) != r)
+
+
+def _assert_ln_matches(x, got, want):
+    d = x.shape[-1]
+    assert got.shape == x.shape and got.dtype == x.dtype
+    if x.dtype == torch.float32:
+        err = (got - want).abs().amax(-1) / want.abs().amax(-1)
+        assert float(err.max()) <= LN_F32_TOL
+        return
+    differs = (got.reshape(-1, d) != want.reshape(-1, d)).any(1)
+    assert float(differs.float().mean()) <= 1 - LN_SAME_ROWS
+    rows = x.reshape(-1, d).double()
+    near = (_near_a_bf16_boundary(rows.mean(1))
+            | _near_a_bf16_boundary(rows.var(1, unbiased=False)))
+    assert not bool((differs & ~near).any()), (
+        f"{int((differs & ~near).sum())} rows differ away from a rounding "
+        f"boundary")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("eps", [1e-6, 1e-5])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [768, 1024, 1280])
+def test_layer_norm_matches_plain_version(d, dtype, eps):
+    """4,121 rows: not a multiple of the rows a block takes at a time, and
+    more than the resident warps, so a warp walks several rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    x, w, b = _ln_inputs((13, 317, d), dtype, seed=d)
+    before = ln.launches["layer_norm"]
+    got = ln.layer_norm(x, w, b, eps)
+    torch.cuda.synchronize()
+    assert ln.launches["layer_norm"] == before + 1
+    _assert_ln_matches(x, got, ln.layer_norm_ref(x, w, b, eps))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_layer_norm_reads_the_strided_cls_rows(dtype):
+    """CLIP's ``ln_post`` on ``y[:, 0, :]``: rows L * D apart, read in
+    place."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    x, w, b = _ln_inputs((37, 50, 768), dtype, seed=5)
+    cls = x[:, 0, :]
+    assert ln.kernel_rows(cls, w, b).data_ptr() == cls.data_ptr()
+    got = ln.layer_norm(cls, w, b, 1e-5)
+    torch.cuda.synchronize()
+    _assert_ln_matches(cls, got, ln.layer_norm_ref(cls, w, b, 1e-5))
+    torch.testing.assert_close(got, ln.layer_norm(cls.contiguous(), w, b,
+                                                  1e-5), atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+def test_layer_norm_takes_an_affine_in_bf16():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    x, w, b = _ln_inputs((3, 197, 768), torch.bfloat16, seed=9,
+                         wdtype=torch.bfloat16)
+    got = ln.layer_norm(x, w, b)
+    torch.cuda.synchronize()
+    _assert_ln_matches(x, got, ln.layer_norm_ref(x, w, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dtype", [(640, torch.bfloat16),
+                                     (96, torch.float32),
+                                     (768, torch.float16)])
+def test_layer_norm_raises_on_the_card_rather_than_falling_back(d, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    x = torch.zeros(4, d, device="cuda", dtype=dtype)
+    w = torch.ones(d, device="cuda")
+    before = ln.launches["layer_norm"]
+    with pytest.raises(ValueError):
+        ln.layer_norm(x, w, torch.zeros_like(w))
+    assert ln.launches["layer_norm"] == before
