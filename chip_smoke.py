@@ -25,48 +25,37 @@ Phases, each fatal on failure:
    instance's registers and spill bytes from ptxas; the bottleneck
    kernel's bf16 and f32 engines' v1 and v2 instances
    (``BF16_INSTANCES``, ``F32_INSTANCES``) must be among them;
-3. kernels: both fused-bottleneck kernels against their plain versions
-   at every ResNet-50 block shape, in f32 (TF32 off, batch 8, 1e-4) and
-   in bf16 (batch 256, per-image cosine gate), with the v2 border; the
-   fused-attention kernel at the mae_base, mae_large and mae_huge head
-   shapes, on the strided qkv views the service passes, in bf16 (batch
-   256, within one ulp, per-row relative error and cosine) and f32
-   (batch 8, 1e-5), and at the ragged (2, 4, 17, 16) and the bf16
-   tiling's edges (``ATTENTION_EDGES``), contiguous; the LayerNorm kernel
-   against ``layer_norm_ref`` at the mae_base and mae_huge shapes (batch
-   256 bf16: 99.9% of rows bit for bit, every other row at a bf16
-   rounding boundary; batch 8 f32: 1e-6 a row) and on CLIP ViT-B/32's
-   strided CLS rows (``ln_post``, eps 1e-5), read in place;
+3. kernels: the card tests, ``tests/test_torch_cuda_kernels.py``, in a
+   subprocess: every kernel against its plain version, at the shapes the
+   port runs and at the edges of each kernel's tiling;
 4. slice, ResNet-50: ``EmbeddingNet("resnet50", compute_dtype=bf16)``
-   with ``fused`` set to v1, v2 and hybrid answers a batch of 1, a batch
-   of 3 and ``embed_batches`` over 1024 frames at batch 256; each answer
-   is held against the f32 ``fused="off"`` path, and the launch counters
-   must show the kernels ran (16 / 13 / 3+7 launches per forward);
+   with ``fused`` set to v1 and v2 answers a batch of 1, a batch of 3 and
+   ``embed_batches`` over 1024 frames at batch 256; each answer is held
+   against the f32 ``fused="off"`` path, and the launch counters must
+   read ``launches_per_forward`` a forward;
 5. slice, MAE: ``EmbeddingNet("mae_base", compute_dtype=bf16)`` on its
    card default route, ``attention``, answers the same requests, held
    against the f32 ``fused="off"`` path with the plain LayerNorm
-   (``plain_layer_norm``); 12 attention and 25 LayerNorm launches per
-   forward;
+   (``plain_layer_norm``), its launches gated the same way;
 6. times: each kernel's median ms per shape beside its bound, its plain
    version and one library call of the same function (cuDNN bf16
    channels_last ``F.conv2d`` for a block, ``scaled_dot_product_attention``
    for attention, ``F.layer_norm`` for LayerNorm); end-to-end frames/s
-   for every route of both paths (the LayerNorm kernel runs on both MAE
-   routes);
+   of the routes no benchmark cell runs (ResNet-50 ``off`` and ``v2``,
+   mae_base ``off``), with a profile of each ``off`` forward;
 7. slice, BC trainer and online eval on ResNet-50 embeddings (f32, the
-   CLIs' default, so the f32 engine of ``fused_bottleneck``): the kernel
-   against its plain version at the slice's batch sizes (1, 4, 32); expert
-   data of one FakeNav scene (``save_opt_trajectories``), the bulk
-   embedder (``save_embedded_obs``), 5 train steps at full width (B 32,
-   T 100, obs 2048) on the card against the CPU (rtol 1e-3), ``main_bc_2``
-   with eval_batch 1 (wrapper envs) and 4 (the fused runner),
-   ``main_test`` on its checkpoint and ``main_bc_1`` (embed at load).
-   Each run is gated on 16 ``fused_bottleneck`` launches per encoder
-   forward and none of ``fused_bottleneck_flat``, and on finite losses,
-   the stats pickle and the checkpoint; then the training frames/s, the
-   eval ms per env step at K = 1 and 4 with the encoder's share, and at
-   batch 1, 4 and 32 in f32 the kernel's ms per block at the launch
-   shape the wrapper chose (tile, cluster, blocks; gated on being
+   CLIs' default, so the f32 engine of ``fused_bottleneck``): expert data
+   of one FakeNav scene (``save_opt_trajectories``), the bulk embedder
+   (``save_embedded_obs``), 5 train steps at full width (B 32, T 100,
+   obs 2048) on the card against the CPU (rtol 1e-3), ``main_bc_2`` with
+   eval_batch 1 (wrapper envs) and 4 (the fused runner), ``main_test`` on
+   its checkpoint and ``main_bc_1`` (embed at load).  Each run's launches
+   are gated on its encoder forwards times resnet50's v1 launches a
+   forward, and each run on finite losses, the stats pickle and the
+   checkpoint; then the eval
+   ms per env step at K = 4 with the encoder's share, and at batch 1, 4
+   and 32 in f32 the kernel's ms per block at the launch shape the
+   wrapper chose (tile, cluster, blocks; gated on being
    ``pick_launch``'s, and at batch 1 on 32 blocks or more for
    ``SPLIT_BLOCKS``), with the cluster capped at 1 and at one block a
    tile, and a forward's sum beside its bound, its plain version and
@@ -76,17 +65,16 @@ Phases, each fatal on failure:
    seeded checkpoints with trained-like BN statistics in the reference's
    layouts; each encoder of ``ZOO`` loads them, and its f32 ``off`` path
    on the card is held against the CPU (8 frames, 1e-3); on its card
-   default route in bf16 (``v1`` for the uber fusion, 45 launches a
-   forward; ``off`` for the rest, with 26 LayerNorm launches a clip_vit
-   forward and none for the convnets) it answers phase 4's
-   requests, held against the f32 ``off`` path; the uber fusion runs in
-   f32 on ``v1`` at batch 1 and 4 against ``off`` (1e-4); frames/s at
-   batch 256 bf16 and a profile of the uber ``v1`` forward; then the conv
-   policy on phase 7's raw data: 5 train steps at full width (B 32, T
-   100, uint8 64x64x3) on the card against the CPU (rtol 1e-3),
-   ``main_bc_finetune`` with eval_batch 1 and 4 (finite losses, the
-   stats pickle and the checkpoint), the training frames/s and the eval
-   ms per env step;
+   default route in bf16 (``v1`` for the uber fusion, ``off`` for the
+   rest) it answers phase 4's requests, held against the f32 ``off``
+   path, its launches gated; the uber fusion runs in f32 on ``v1`` at
+   batch 1 and 4 against ``off`` (1e-4); frames/s at batch 256 bf16 and a
+   profile of the uber ``v1`` forward; then the conv policy on phase 7's
+   raw data: 5 train steps at full width (B 32, T 100, uint8 64x64x3) on
+   the card against the CPU (rtol 1e-3), ``main_bc_finetune`` with
+   eval_batch 1 and 4 (finite losses, the stats pickle and the
+   checkpoint, no kernel launch), the training frames/s and the eval ms
+   per env step;
 9. slice, int8 serving and the bulk embedder: ``ops/quantize.matmul_int32``
    (``torch._int_mm``, zero-padded) against the CPU's int32 product,
    exactly, and its time beside bf16's at the serving shapes; for each
@@ -94,57 +82,56 @@ Phases, each fatal on failure:
    maskrcnn_l3 from phase 8's checkpoints)
    ``ShardedEmbedder(quantize=True).embed_all`` over phase 4's frames at
    batch 256, gated on per-row cosine against the f32 ``off`` path and on
-   its launches (12 ``fused_attention`` and 25 ``layer_norm`` a mae_base
-   forward, calibration included); the int8 forward on the card against
-   the CPU on the same
-   inputs and scales (cosine > 0.9999); int8 frames/s beside the bf16
-   default route's; a profile of the resnet50 int8 forward split into
-   im2col copies, ``_int_mm``, quantize and dequant, and the top kernels
-   of the mae_base one; then
+   its launches (calibration included); the int8 forward on the card
+   against the CPU on the same inputs and scales (cosine > 0.9999); int8
+   frames/s beside the bf16 default route's; a profile of the resnet50
+   int8 forward split into im2col copies, ``_int_mm``, quantize and
+   dequant, and the top kernels of the mae_base one; then
    ``save_embedded_obs`` on phase 7's raw pickle with ``--sharded_embed``
-   (f32 on v1, 16 launches a forward, 1e-3 against phase 7's pickle) and
-   ``--quantize_embed`` (cosine > 0.99);
+   (f32 on v1, 1e-3 against phase 7's pickle) and ``--quantize_embed``
+   (cosine > 0.99);
 10. slice, serving and scale-out: (a) an ``EmbeddingServer``
    (``tools/serve_embeddings.py``) in this process serves resnet50 bf16
    and f32 and mae_base bf16 on their card default routes to 4
    concurrent clients of 50 requests of 1-8 frames; launches gated per
-   micro-batch (16 ``fused_bottleneck``; 12 ``fused_attention`` and 25
-   ``layer_norm``), every
-   reply held against a direct ``EmbeddingNet`` call (f32, 1e-3) or the
-   f32 off path (bf16, cosine > 0.99); round-trip p50/p99, the
-   micro-batch sizes, frames/s and the f32 launch-shape search's time;
-   (b) PNG datagen of phase 7's trajectories, decoded bit for bit equal
-   to phase 7's frames, and ``save_embedded_obs`` with its default
-   ``--source png`` (resnet50 f32, 16 launches a trajectory) against
-   ``embed_batches`` at 1e-3, with the codec that ran and decode frames/s;
-   then its read-and-embed loop alone on a built encoder, with and without
-   the decode prefetch: embed frames/s and the share outside the
-   encoder's forwards; (c) two
-   ranks on the one card over gloo (``parallel/dryrun.py``):
-   ``embed_local`` against one process
-   (1e-3) and 5 data-parallel train steps at full width with BatchNorm,
-   the ranks bitwise equal and each step against one process from the
-   same state (rtol 1e-3); then the dry run as one rank over NCCL;
+   micro-batch, every reply held against a direct ``EmbeddingNet`` call
+   (f32, 1e-3) or the f32 off path (bf16, cosine > 0.99); round-trip
+   p50/p99, the micro-batch sizes and frames/s; (b) PNG datagen of phase
+   7's trajectories, decoded bit for bit equal to phase 7's frames, and
+   ``save_embedded_obs`` with its default ``--source png`` (resnet50 f32,
+   one forward a trajectory, launches gated) against ``embed_batches``
+   at 1e-3, with the codec that ran and decode frames/s; then its
+   read-and-embed loop alone on a built encoder, with and without the
+   decode prefetch: embed frames/s and the share outside the encoder's
+   forwards; (c) two ranks on the one card over gloo
+   (``parallel/dryrun.py``): ``embed_local`` against one process (1e-3)
+   and 5 data-parallel train steps at full width with BatchNorm, the
+   ranks bitwise equal and each step against one process from the same
+   state (rtol 1e-3); then the dry run as one rank over NCCL;
 11. slice, sweep, checkpoint conversion, tensor parallelism: (a)
    ``tools/zoo_checkpoints.py`` writes reference-layout ``moco_aug`` and
    ``mae_base`` files, ``tools/convert_checkpoint.py`` converts them on
    the card, and ``EmbeddingNet(compute_dtype=bf16)`` from the converted
    file answers as the one from the original (pretrained path), equal,
-   with 16 ``fused_bottleneck`` / 12 ``fused_attention`` and 25
-   ``layer_norm`` launches a forward; (b) ``tools/sweep.py`` over one FakeImageNav scene
+   launches gated; (b) ``tools/sweep.py`` over one FakeImageNav scene
    (``SWEEP_GRID``): the embedding sweep, resnet50 (``main_bc_2``) and
    random (``main_bc_1``) BC jobs and a finetune job through the local
-   executor, each job's launches gated (16 a resnet50 forward), a
-   second seed through ``SubprocessExecutor``, every stats pickle and
-   checkpoint with finite losses, and a second call of each sweep
-   submitting nothing; (c) ``main_bc_2 --mesh_shape 1,2`` on two ranks
-   on the card over gloo at full width with BatchNorm, against one
-   process: losses and pre-clip norms (rtol 1e-4), the checkpoints'
-   keys, shapes and params (1e-4); then each tensor-parallel step from
-   the same state as one process (rtol 1e-4), ms a step beside one
-   process, and the all-gathers' and the sharded inputs' all-reduces'
-   share of it.  The habitat and gym adapters are not installed there:
-   it says so, and the CPU tests hold them on stubs.
+   executor, each job's launches gated, a second seed through
+   ``SubprocessExecutor``, every stats pickle and checkpoint with finite
+   losses, and a second call of each sweep submitting nothing; (c)
+   ``main_bc_2 --mesh_shape 1,2`` on two ranks on the card over gloo at
+   full width with BatchNorm, against one process: losses and pre-clip
+   norms (rtol 1e-4), the checkpoints' keys, shapes and params (1e-4);
+   then each tensor-parallel step from the same state as one process
+   (rtol 1e-4), ms a step beside one process, and the all-gathers' and
+   the sharded inputs' all-reduces' share of it.  The habitat and gym
+   adapters are not installed there: it says so, and the CPU tests hold
+   them on stubs.
+
+Every launch gate reads ``launches_per_forward``, which derives each
+kernel's launches a forward from the encoder's structure.  The end-to-end
+rates of the routes and steps that ``BENCHMARK.json``'s cells run are the
+benchmark's (``port_bench/``), not this script's.
 
 The last three lines are the card's name and power limit, one JSON
 object with the kernels' numbers, and the verdict
@@ -152,6 +139,7 @@ object with the kernels' numbers, and the verdict
 prints no result.
 """
 
+import collections
 import contextlib
 import json
 import math
@@ -163,52 +151,39 @@ import time
 
 import numpy as np
 
-PEAK_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
-PEAK_BF16_FLOP_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
-PEAK_F32_FLOP_PER_S = 67e12    # H100 SXM float32 outside the tensor cores
+from port_bench.costs import (PEAK_BYTES_PER_S, PEAK_FLOP_PER_S,
+                              attention_cost, block_cost)
+
 SEED = 0
 BULK_BATCH = 256               # the service's bulk batch (embed_batches)
+CARD_TESTS = "tests/test_torch_cuda_kernels.py"
 
-# ResNet-50 at 224 input: (first block of the shape class, H in, stride,
-# Cin, P, Cout, projection shortcut, launches per forward on v1, on v2)
+# ResNet-50 at 224 input, one block of each shape: (name, H in, stride,
+# Cin, P, Cout, projection shortcut); "layerS.1" stands for every block
+# of stage S after its first (``block_launches``).
 BLOCKS = [
-    ("layer1.0", 56, 1, 64, 64, 256, True, 1, 1),
-    ("layer1.1", 56, 1, 256, 64, 256, False, 2, 2),
-    ("layer2.0", 56, 2, 256, 128, 512, True, 1, 0),
-    ("layer2.1", 28, 1, 512, 128, 512, False, 3, 3),
-    ("layer3.0", 28, 2, 512, 256, 1024, True, 1, 0),
-    ("layer3.1", 14, 1, 1024, 256, 1024, False, 5, 5),
-    ("layer4.0", 14, 2, 1024, 512, 2048, True, 1, 0),
-    ("layer4.1", 7, 1, 2048, 512, 2048, False, 2, 2),
+    ("layer1.0", 56, 1, 64, 64, 256, True),
+    ("layer1.1", 56, 1, 256, 64, 256, False),
+    ("layer2.0", 56, 2, 256, 128, 512, True),
+    ("layer2.1", 28, 1, 512, 128, 512, False),
+    ("layer3.0", 28, 2, 512, 256, 1024, True),
+    ("layer3.1", 14, 1, 1024, 256, 1024, False),
+    ("layer4.0", 14, 2, 1024, 512, 2048, True),
+    ("layer4.1", 7, 1, 2048, 512, 2048, False),
 ]
-ROUTE_LAUNCHES = {"v1": {"fused_bottleneck": 16, "fused_bottleneck_flat": 0},
-                  "v2": {"fused_bottleneck": 0, "fused_bottleneck_flat": 13},
-                  "hybrid": {"fused_bottleneck": 3,
-                             "fused_bottleneck_flat": 7}}
-# MAE attention cores: (config, heads, L, head dim, launches per forward)
-ATTENTION = [("mae_base", 12, 197, 64, 12),
-             ("mae_large", 16, 197, 64, 24),
-             ("mae_huge", 16, 257, 80, 32)]
-# bf16 attention shapes at the edges of the kernel's tiling: rows of 8,
-# 16 and 17 key tiles held in registers (full, no ragged tile), and a row
-# past 17 tiles that takes two passes over the keys.
-ATTENTION_EDGES = [(2, 4, 128, 64), (2, 4, 256, 64), (2, 4, 272, 80),
-                   (2, 4, 600, 64)]
-# LayerNorm launches a forward: an MAE's two a block and its final norm
-# (mae_base 25, mae_huge 65); CLIP ViT-B/32's two a block, ln_pre and
-# ln_post (26).
-MAE_LAUNCHES = {"fused_attention": 12, "layer_norm": 25}
-# LayerNorm at batch 256: (config, L, D, eps, launches a forward), and
-# CLIP ViT-B/32's tokens a frame, whose ln_post reads the strided CLS rows
-LAYER_NORM = [("mae_base", 197, 768, 1e-6, 25),
-              ("mae_huge", 257, 1280, 1e-6, 65)]
-CLIP_TOKENS = 50
-# bf16 gate of the LayerNorm kernel, that of tests/test_torch_cuda_kernels.py:
-# at least LN_SAME_ROWS of the rows bit for bit the plain version's, and
-# every row whose exact mean and variance lie further than LN_MARGIN
-# (relative) from a bf16 rounding boundary; f32: each row's worst error
-# over its largest value within LN_F32_TOL.
-LN_SAME_ROWS, LN_MARGIN, LN_F32_TOL = 0.999, 1e-5, 1e-6
+# MAE attention cores: (config, heads, L, head dim)
+ATTENTION = [("mae_base", 12, 197, 64),
+             ("mae_large", 16, 197, 64),
+             ("mae_huge", 16, 257, 80)]
+# LayerNorm at batch 256: (config, L, D, eps)
+LAYER_NORM = [("mae_base", 197, 768, 1e-6),
+              ("mae_huge", 257, 1280, 1e-6)]
+# The forward each kernel's per-forward times and launches are taken
+# over, at batch 256 bf16: (encoder, route)
+TIMED_FORWARD = {"fused_bottleneck": ("resnet50", "v1"),
+                 "fused_bottleneck_flat": ("resnet50", "v2"),
+                 "fused_attention": ("mae_base", "attention"),
+                 "layer_norm": ("mae_base", "attention")}
 # Phase 7, the BC slice: expert data of one PointNav scene, enough of it
 # that sample_with_minimum_distance finds 32 starts 100 apart (n > 3101).
 BC_ENV = "FakePointNav-apartment_0"
@@ -221,30 +196,27 @@ F32_BATCHES = (1, 4, 32)       # ... and the bulk embedder's batch
 # Blocks whose f32 launches at the eval batches must spread over more
 # blocks than one a tile (pick_launch's cluster split).
 SPLIT_BLOCKS = ("layer3.1", "layer4.0", "layer4.1")
-# Phase 8, the rest of the encoder zoo: (name, the card's default route,
-# kernel launches per forward on it).  An uber fusion runs three trunks:
-# 13 v1 launches for moco_aug_l3, 16 for moco_aug_l4, 16 for moco_aug.
-ZOO = [("moco_aug_uber_345", "v1", {"fused_bottleneck": 45}),
-       ("clip_vit", "off", {"layer_norm": 26}), ("clip_rn50", "off", {}),
-       ("maskrcnn_l3", "off", {})]
+# Phase 8, the rest of the encoder zoo: (name, the card's default route)
+ZOO = [("moco_aug_uber_345", "v1"), ("clip_vit", "off"), ("clip_rn50", "off"),
+       ("maskrcnn_l3", "off")]
 ZOO_CPU_FRAMES = 8             # frames of the f32 forward, card vs CPU
 FINETUNE_STEPS = 5             # conv-policy train steps, card vs CPU
 # Phase 9, int8 serving through the bulk embedder: (name, the int8 path's
-# card default route, kernel launches per forward on it, cosine gate
-# against the f32 off path: the JAX package's, tests/test_quantize.py).
-INT8 = [("resnet50", "off", {}, 0.99),
-        ("clip_rn50", "off", {}, 0.98),
-        ("maskrcnn_l3", "off", {}, 0.98),
-        ("mae_base", "attention", MAE_LAUNCHES, 0.98)]
+# card default route, cosine gate against the f32 off path: the JAX
+# package's, tests/test_quantize.py).
+INT8 = [("resnet50", "off", 0.99),
+        ("clip_rn50", "off", 0.98),
+        ("maskrcnn_l3", "off", 0.98),
+        ("mae_base", "attention", 0.98)]
 INT8_CPU_FRAMES = 8            # frames of the int8 forward, card vs CPU
 # the whole int8 MAE forward, card vs CPU (its blocks are held at 0.9999
 # one by one; phase 9 prints the same forward on the "off" route, no
 # attention kernel, card vs CPU, beside it)
 MAE_WHOLE_GATE = 0.999
-# launches per forward of the CLI's resnet50 runs: --sharded_embed runs
-# f32 on v1, --quantize_embed int8 with no kernel
-CLI_LAUNCHES = {"--sharded_embed": {"fused_bottleneck": 16},
-                "--quantize_embed": {}}
+# The CLI's resnet50 runs: (route, compute dtype); --sharded_embed runs f32
+# on v1, --quantize_embed int8 (bf16 activations) with no kernel
+CLI_ROUTES = {"--sharded_embed": ("v1", "float32"),
+              "--quantize_embed": ("off", "bfloat16")}
 # (M, K, N) of the int8 product: below cuBLAS's M > 16, K and N off a
 # multiple of 8 (the stems' K, the compress graft's N = 11); then at a
 # batch of 256 ResNet-50's stem, a layer1 3x3 and 1x1, layer4's 3x3 and
@@ -257,12 +229,11 @@ INT_MM_SHAPES = [(8, 147, 11), (17, 27, 32), (100, 99, 11),
 BF16_INSTANCES = {"bottleneck_mma_kernel<0>", "bottleneck_mma_kernel<1>"}
 F32_INSTANCES = {"bottleneck_kernel<ScalarEngine,0>",
                  "bottleneck_kernel<ScalarEngine,1>"}
-# Phase 10, serving and scale-out.  The server: (encoder, compute dtype,
-# launches per micro-batch on its card default route), its clients and
-# their requests of 1 to SERVE_MAX_FRAMES frames, the server's defaults.
-SERVE = [("resnet50", "bfloat16", {"fused_bottleneck": 16}),
-         ("resnet50", "float32", {"fused_bottleneck": 16}),
-         ("mae_base", "bfloat16", MAE_LAUNCHES)]
+# Phase 10, serving and scale-out.  The server: (encoder, compute dtype)
+# on its card default route, its clients and their requests of 1 to
+# SERVE_MAX_FRAMES frames, the server's defaults.
+SERVE = [("resnet50", "bfloat16"), ("resnet50", "float32"),
+         ("mae_base", "bfloat16")]
 SERVE_CLIENTS = 4
 SERVE_REQUESTS = 50
 SERVE_MAX_FRAMES = 8
@@ -272,9 +243,9 @@ PNG_TRAJECTORIES = BC_TRAJECTORIES   # PNG datagen of phase 7's data
 RANKS = 2                      # processes on the one card, over gloo
 RANK_EMBED_FRAMES = 256        # frames embed_local splits over the ranks
 # Phase 11, the sweep, checkpoint conversion and tensor parallelism.
-# Conversion: (zoo name, launches a forward of its bf16 card default route).
-CONVERT = [("moco_aug", {"fused_bottleneck": 16}),
-           ("mae_base", MAE_LAUNCHES)]
+# Conversion: the zoo names converted, each then run on its bf16 card
+# default route.
+CONVERT = ["moco_aug", "mae_base"]
 CONVERT_FRAMES = 8
 # The sweep's one-scene grid (cut: 2 epochs of B 8 x T 20, one eval
 # episode of <= 30 steps a point; the default grid's 35 x 5 x 10 jobs
@@ -329,38 +300,89 @@ def row_cosine(torch, a, b):
     return torch.nn.functional.cosine_similarity(a, b, dim=1).min().item()
 
 
-def block_cost(n, h, stride, cin, p, cout, ds, itemsize, flat):
-    """(bytes, FLOP) the block must move and do: x read once, out written
-    once, weights and biases read once; FLOP of the block's products."""
-    ho = h // stride
-    pix_in = (h + 2) ** 2 if flat else h * h
-    pix_out = (ho + 2) ** 2 if flat else ho * ho
-    weights = cin * p + 9 * p * p + p * cout + (cin * cout if ds else 0)
-    nbytes = (n * (pix_in * cin + pix_out * cout) + weights) * itemsize \
-        + 4 * (2 * p + cout * (2 if ds else 1)) + (4 * pix_in if flat else 0)
-    flop = 2 * n * (h * h * cin * p + ho * ho * (
-        9 * p * p + p * cout + (cin * cout if ds else 0)))
-    return nbytes, flop
+def block_launches(spec, route):
+    """[(kernel, ``BLOCKS`` name)] of every bottleneck block a forward of
+    the ResNet ``spec`` sends to a kernel on ``route``, as
+    ``models/resnet.py`` runs them: on ``v1`` each block of the stages
+    before the cut, on ``v2`` each stride-1 block of the full net (the
+    stride-2 heads stay on ``F.conv2d``), on ``off`` and in a basic-block
+    net none."""
+    if spec.block != "bottleneck" or route == "off":
+        return []
+    stages = spec.layers[:3] if spec.cut == "l3" else spec.layers
+    out = []
+    for s, blocks in enumerate(stages):
+        for i in range(blocks):
+            name = f"layer{s + 1}.{min(i, 1)}"
+            if route == "v1":
+                out.append(("fused_bottleneck", name))
+            elif i or not s:
+                out.append(("fused_bottleneck_flat", name))
+    return out
 
 
-def attention_cost(n, h, l, d, itemsize):
-    """(bytes, FLOP) one attention launch must move and do: q, k, v read
-    once, out written once; QK^T and PV."""
-    return 4 * n * h * l * d * itemsize, 4 * n * h * l * l * d
+def launches_per_forward(name, route, dtype):
+    """Each kernel's launches in one forward of encoder ``name`` on
+    ``route`` (its ``fused`` value, or its int8 path's) in ``dtype`` on
+    the card, derived from the encoder's structure: a bottleneck ResNet's
+    blocks and cut (``block_launches``); an MAE's attention cores, one a
+    block where the route is ``attention`` and
+    ``attention.kernel_applies``; a ViT's LayerNorms, which launch the
+    kernel on every route: two a block and the MAE's final norm, CLIP
+    ViT-B/32's ``ln_pre`` and ``ln_post``; an uber fusion the sum of its
+    constituents.  The int8 paths launch what the float path of the same
+    route launches."""
+    from pvr_habitat_tpu_torch.models import clip, registry, vit
+    from pvr_habitat_tpu_torch.ops import image
+    from pvr_habitat_tpu_torch.ops.cuda import attention
+
+    counts = dict.fromkeys(KERNELS, 0)
+    if "_uber_" in name:
+        for sub in registry.uber_constituents(name):
+            for kernel, n in launches_per_forward(sub, route, dtype).items():
+                counts[kernel] += n
+        return counts
+    family = registry._resnet_family(name)
+    if family is not None:
+        for kernel, _ in block_launches(family[0], route):
+            counts[kernel] += 1
+    elif name in vit.MAE_CONFIGS:
+        _, depth, _, patch = vit.MAE_CONFIGS[name]
+        tokens = (image.mae_preprocess().crop_size // patch) ** 2 + 1
+        if route == "attention" and attention.kernel_applies(dtype, tokens):
+            counts["fused_attention"] = depth
+        counts["layer_norm"] = 2 * depth + 1
+    elif name == "clip_vit":
+        counts["layer_norm"] = 2 * clip.VIT_B32["layers"] + 2
+    return counts
 
 
-def count_launches(fb, fa):
+def reset_launches():
+    from pvr_habitat_tpu_torch.ops.cuda import attention as fa
+    from pvr_habitat_tpu_torch.ops.cuda import fused_bottleneck as fb
+    from pvr_habitat_tpu_torch.ops.cuda import layer_norm as ln
+
+    for module in (fb, fa, ln):
+        module.reset_launches()
+
+
+def read_launches():
+    from pvr_habitat_tpu_torch.ops.cuda import attention as fa
+    from pvr_habitat_tpu_torch.ops.cuda import fused_bottleneck as fb
     from pvr_habitat_tpu_torch.ops.cuda import layer_norm as ln
 
     return {**fb.launches, **fa.launches, **ln.launches}
 
 
-def reset_launches(fb, fa):
-    from pvr_habitat_tpu_torch.ops.cuda import layer_norm as ln
-
-    fb.reset_launches()
-    fa.reset_launches()
-    ln.reset_launches()
+def gate_launches(label, per_forward, forwards):
+    """The launch counters since ``reset_launches`` must read
+    ``per_forward`` times ``forwards`` for every kernel; returns them."""
+    counts = read_launches()
+    want = {k: per_forward[k] * forwards for k in KERNELS}
+    if counts != want:
+        raise AssertionError(f"{label}: launches {counts} != {want} over "
+                             f"{forwards} forwards")
+    return counts
 
 
 @contextlib.contextmanager
@@ -378,205 +400,28 @@ def plain_layer_norm():
         ln.layer_norm = kernel
 
 
-def check_bottleneck_kernels(torch, fb, params, activations, device,
-                             max_err):
-    for prefix, h, s, cin, p, cout, ds, _, n_v2 in BLOCKS:
-        for dtype, n in ((torch.float32, 8), (torch.bfloat16, 256)):
-            w = fb.block_weights(params, prefix, dtype)
-            x = activations(n, h, cin, dtype)
-            runs = [("fused_bottleneck",
-                     lambda: fb.fused_bottleneck(x, *w, stride=s),
-                     lambda: fb.fused_bottleneck_ref(x, *w, stride=s))]
-            if n_v2:
-                mask = torch.from_numpy(fb.flat_mask(h, h)).to(device)
-                xf = fb.to_padded_flat(x)
-                runs.append((
-                    "fused_bottleneck_flat",
-                    lambda: fb.fused_bottleneck_flat(xf, mask, *w, h=h, w=h),
-                    lambda: fb.fused_bottleneck_flat_ref(xf, mask, *w, h=h,
-                                                         w=h)))
-            for kernel, run, plain in runs:
-                got = run()
-                torch.cuda.synchronize()
-                want = plain()
-                if not torch.isfinite(got).all():
-                    raise AssertionError(f"{kernel} {prefix}: not finite")
-                err = (got.float() - want.float()).abs().max().item()
-                if dtype == torch.float32:
-                    torch.testing.assert_close(got, want, atol=1e-4,
-                                               rtol=1e-4)
-                    max_err[kernel] = max(max_err[kernel], err)
-                    gate = f"max_abs_err {err:.3g} (atol=rtol=1e-4)"
-                else:
-                    cos = row_cosine(torch, got, want)
-                    if cos <= 0.999:
-                        raise AssertionError(
-                            f"{kernel} {prefix} bf16: cosine {cos}")
-                    gate = f"max_abs_err {err:.3g}, min cosine {cos:.6f}"
-                if kernel == "fused_bottleneck_flat":
-                    border = got.reshape(n, h + 2, h + 2, cout)
-                    if (border[:, 0].any() or border[:, -1].any()
-                            or border[:, :, 0].any()
-                            or border[:, :, -1].any()):
-                        raise AssertionError(f"{kernel} {prefix}: border")
-                print(f"{kernel} {prefix} {str(dtype)[6:]} n={n}: {gate}",
-                      flush=True)
-
-
-def attention_inputs(torch, gen, shape, dtype, strided=True):
-    """q, k, v of ``shape`` (N, H, L, D).  ``strided``: (N, H, L, D) views
-    of one (N, L, 3, H, D) tensor, the layout ``models/vit.py`` passes;
-    else three contiguous tensors."""
+def attention_inputs(torch, gen, shape, dtype):
+    """q, k, v of ``shape`` (N, H, L, D): views of one (N, L, 3, H, D)
+    tensor, the layout ``models/vit.py`` passes."""
     gen.manual_seed(SEED + sum(shape))
     n, h, l, d = shape
-    if strided:
-        qkv = torch.randn(n, l, 3, h, d, device="cuda", generator=gen,
-                          dtype=torch.float32).to(dtype)
-        return [t.transpose(1, 2) for t in qkv.unbind(2)]
-    return [torch.randn(*shape, device="cuda", generator=gen,
-                        dtype=torch.float32).to(dtype) for _ in range(3)]
+    qkv = torch.randn(n, l, 3, h, d, device="cuda", generator=gen,
+                      dtype=torch.float32).to(dtype)
+    return [t.transpose(1, 2) for t in qkv.unbind(2)]
 
 
-# bf16 gate.  Both round p and the output to bf16 at the same points, so
-# an output moves at most one bf16 ulp, at most 2^-7 of its value: rtol
-# 2^-7, atol 4e-3 (one ulp below 1).  The per-row relative norm error is
-# then at most 2^-7 too; a whole row scaled by a few percent (a lost mask,
-# a wrong row sum) fails its bound of 1e-2.
-ATTN_BF16_ATOL, ATTN_BF16_RTOL = 4e-3, 2.0 ** -7
-ATTN_BF16_ROW_REL = 1e-2
-
-
-def check_attention_kernel(torch, fa, gen, max_err):
-    """f32 at 1e-5 (the JAX test's tolerance).  bf16 elementwise within
-    one ulp, per-row relative norm error and per-row cosine.
-    The MAE shapes read the strided qkv views the service passes; the
-    ragged JAX-test shape and the tiling's edges read contiguous tensors."""
-    cases = [((2, 4, 17, 16), dtype, False) for dtype in (torch.float32,
-                                                          torch.bfloat16)]
-    cases += [(shape, torch.bfloat16, False) for shape in ATTENTION_EDGES]
-    for _, h, l, d, _ in ATTENTION:
-        cases += [((8, h, l, d), torch.float32, True),
-                  ((256, h, l, d), torch.bfloat16, True)]
-    for shape, dtype, strided in cases:
-        q, k, v = attention_inputs(torch, gen, shape, dtype, strided)
-        got = fa.fused_attention(q, k, v)
-        torch.cuda.synchronize()
-        want = fa.fused_attention_ref(q, k, v)
-        if got.shape != want.shape or not torch.isfinite(got).all():
-            raise AssertionError(f"fused_attention {shape}: {got.shape}")
-        err = (got.float() - want.float()).abs().max().item()
-        if dtype == torch.float32:
-            torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
-            max_err["fused_attention"] = max(max_err["fused_attention"], err)
-            gate = f"max_abs_err {err:.3g} (atol=rtol=1e-5)"
-        else:
-            torch.testing.assert_close(got, want, atol=ATTN_BF16_ATOL,
-                                       rtol=ATTN_BF16_RTOL)
-            g = got.float().reshape(-1, shape[-1])
-            w = want.float().reshape(-1, shape[-1])
-            rel = ((g - w).norm(dim=1)
-                   / w.norm(dim=1).clamp_min(1e-30)).max().item()
-            if rel > ATTN_BF16_ROW_REL:
-                raise AssertionError(f"fused_attention {shape}: row relative "
-                                     f"error {rel}")
-            cos = row_cosine(torch, g, w)
-            if cos <= 0.999:
-                raise AssertionError(f"fused_attention {shape}: cos {cos}")
-            gate = (f"max_abs_err {err:.3g} (atol {ATTN_BF16_ATOL}, "
-                    f"rtol 2^-7), "
-                    f"max row rel err {rel:.3g}, min row cosine {cos:.6f}")
-        print(f"fused_attention {shape} {str(dtype)[6:]}"
-              f"{' strided' if strided else ''}: {gate}", flush=True)
-
-
-def layer_norm_inputs(torch, gen, shape, dtype):
-    """Rows (z + m) * s with an offset m ~ N(0, 1) and a scale
-    s = exp(N(0, 1)) of their own; the affine in f32 as the benchmark
-    draws it, 1 + N(0, 0.05) and N(0, 0.05)."""
-    gen.manual_seed(SEED + sum(shape))
-
-    def randn(*s):
-        return torch.randn(*s, device="cuda", generator=gen)
-
-    rows = (*shape[:-1], 1)
-    x = (randn(*shape) + randn(*rows)) * randn(*rows).exp()
-    return (x.to(dtype), 1 + 0.05 * randn(shape[-1]),
-            0.05 * randn(shape[-1]))
-
-
-def layer_norm_gate(torch, x, got, want):
-    """The card tests' gate (``LN_*``); returns what it read."""
-    d = x.shape[-1]
-    if got.shape != x.shape or got.dtype != x.dtype \
-            or not torch.isfinite(got).all():
-        raise AssertionError(f"layer_norm {tuple(x.shape)}: {got.shape} "
-                             f"{got.dtype}")
-    err = (got.float() - want.float()).abs().max().item()
-    if x.dtype == torch.float32:
-        rel = ((got - want).abs().amax(-1)
-               / want.abs().amax(-1)).max().item()
-        if rel > LN_F32_TOL:
-            raise AssertionError(f"layer_norm {tuple(x.shape)} f32: row "
-                                 f"error {rel}")
-        return err, f"max_abs_err {err:.3g}, max row err {rel:.3g} (1e-6)"
-
-    def near(v):    # where v's bf16 rounding changes within LN_MARGIN
-        r = v.to(torch.bfloat16)
-        return (((v * (1 + LN_MARGIN)).to(torch.bfloat16) != r)
-                | ((v * (1 - LN_MARGIN)).to(torch.bfloat16) != r))
-
-    differs = (got.reshape(-1, d) != want.reshape(-1, d)).any(1)
-    rows = x.reshape(-1, d).double()
-    away = differs & ~(near(rows.mean(1)) | near(rows.var(1, unbiased=False)))
-    same = 1 - differs.float().mean().item()
-    if same < LN_SAME_ROWS or away.any():
-        raise AssertionError(f"layer_norm {tuple(x.shape)} bf16: rows the "
-                             f"same {same}, {int(away.sum())} differ away "
-                             f"from a rounding boundary")
-    return err, (f"rows bit for bit the same {same:.4%} (gate "
-                 f"{LN_SAME_ROWS:.1%}), every other row at a rounding "
-                 f"boundary; max_abs_err {err:.3g}")
-
-
-def check_layer_norm_kernel(torch, ln, gen, max_err):
-    """The kernel against ``layer_norm_ref`` at the MAE shapes (batch 256
-    in bf16, 8 in f32) and on CLIP ViT-B/32's strided CLS rows (ln_post,
-    eps 1e-5), read in place."""
-    cases = []
-    for config, l, d, eps, _ in LAYER_NORM:
-        cases += [(config, (256, l, d), torch.bfloat16, eps),
-                  (config, (8, l, d), torch.float32, eps)]
-    cases += [("clip_vit ln_post", (256, CLIP_TOKENS, 768), dtype, 1e-5)
-              for dtype in (torch.bfloat16, torch.float32)]
-    for label, shape, dtype, eps in cases:
-        x, w, b = layer_norm_inputs(torch, gen, shape, dtype)
-        if label.startswith("clip"):
-            x = x[:, 0, :]
-            if ln.kernel_rows(x, w, b).data_ptr() != x.data_ptr():
-                raise AssertionError("layer_norm copies the CLS rows")
-        got = ln.layer_norm(x, w, b, eps)
-        torch.cuda.synchronize()
-        err, gate = layer_norm_gate(torch, x, got,
-                                    ln.layer_norm_ref(x, w, b, eps))
-        if dtype == torch.float32:
-            max_err["layer_norm"] = max(max_err["layer_norm"], err)
-        print(f"layer_norm {label} {tuple(x.shape)} {str(dtype)[6:]} eps "
-              f"{eps:g}: {gate}", flush=True)
-
-
-def drive_service(torch, fb, fa, net, frames, ref, per_forward, label):
+def drive_service(torch, net, frames, ref):
     """One batch of 1, one of 3 and ``embed_batches`` over all frames at
-    batch 256, with every launch counter set to 0 just before and read
+    batch 256, with every launch counter set to 0 just before and gated
     just after; held against the f32 ``off`` embeddings ``ref``."""
-    reset_launches(fb, fa)
+    label = f"{net.embedding_name} route {net.fused}"
+    reset_launches()
     one = net(frames[:1])
     three = net(frames[1:4])
     bulk = net.embed_batches(frames, BULK_BATCH)
-    counts = count_launches(fb, fa)
     forwards = 1 + 1 + len(frames) // BULK_BATCH
-    want = {k: per_forward.get(k, 0) * forwards for k in KERNELS}
-    if counts != want:
-        raise AssertionError(f"{label}: launches {counts} != {want}")
+    counts = gate_launches(label, launches_per_forward(
+        net.embedding_name, net.fused, net.compute_dtype), forwards)
     dim = net.out_size
     if one.shape != (dim,) or three.shape != (3, dim) \
             or bulk.shape != (len(frames), dim):
@@ -590,7 +435,6 @@ def drive_service(torch, fb, fa, net, frames, ref, per_forward, label):
         raise AssertionError(f"{label}: cosine vs f32 off {cos}")
     print(f"{label}: launches {counts} over {forwards} forwards; "
           f"min cosine vs f32 off {cos:.6f}", flush=True)
-    return counts
 
 
 def f32_reference(torch, net, frames):
@@ -603,6 +447,14 @@ def f32_reference(torch, net, frames):
 def add_time(totals, kernel, count, **values):
     for key, val in values.items():
         totals[kernel][key] += count * val
+
+
+def resnet50_block_counts(route):
+    """{(kernel, ``BLOCKS`` name): launches a ResNet-50 forward on
+    ``route``}."""
+    from pvr_habitat_tpu_torch.models.resnet import ResNetSpec
+
+    return collections.Counter(block_launches(ResNetSpec(50), route))
 
 
 def library_block(torch, F, params, prefix, s, ds, dtype, x):
@@ -628,32 +480,39 @@ def library_block(torch, F, params, prefix, s, ds, dtype, x):
     return library
 
 
+def bound_ms(nbytes, flop, dtype):
+    """(bound, bytes' ms, FLOP's ms) at the published peaks."""
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    flop_ms = flop / PEAK_FLOP_PER_S[dtype] * 1e3
+    return max(bytes_ms, flop_ms), bytes_ms, flop_ms
+
+
 def time_bottleneck_kernels(torch, F, fb, params, activations, device,
                             totals):
     n = 256
-    for prefix, h, s, cin, p, cout, ds, n_v1, n_v2 in BLOCKS:
+    counts = resnet50_block_counts("v1") + resnet50_block_counts("v2")
+    for prefix, h, s, cin, p, cout, ds in BLOCKS:
         w = fb.block_weights(params, prefix, torch.bfloat16)
         x = activations(n, h, cin, torch.bfloat16)
         library_ms = time_ms(torch, library_block(
             torch, F, params, prefix, s, ds, torch.bfloat16, x))
         mask = torch.from_numpy(fb.flat_mask(h, h)).to(device)
         xf = fb.to_padded_flat(x)
-        cases = [("fused_bottleneck", n_v1, False,
+        cases = [("fused_bottleneck", False,
                   lambda: fb.fused_bottleneck(x, *w, stride=s),
                   lambda: fb.fused_bottleneck_ref(x, *w, stride=s))]
-        if n_v2:
+        if counts[("fused_bottleneck_flat", prefix)]:
             cases.append((
-                "fused_bottleneck_flat", n_v2, True,
+                "fused_bottleneck_flat", True,
                 lambda: fb.fused_bottleneck_flat(xf, mask, *w, h=h, w=h),
                 lambda: fb.fused_bottleneck_flat_ref(xf, mask, *w, h=h,
                                                      w=h)))
-        for kernel, count, flat, run, plain in cases:
+        for kernel, flat, run, plain in cases:
+            count = counts[(kernel, prefix)]
             ms = time_ms(torch, run)
             plain_ms = time_ms(torch, plain, reps=3, warmup=1)
             nbytes, flop = block_cost(n, h, s, cin, p, cout, ds, 2, flat)
-            bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-            flop_ms = flop / PEAK_BF16_FLOP_PER_S * 1e3
-            bound = max(bytes_ms, flop_ms)
+            bound, bytes_ms, flop_ms = bound_ms(nbytes, flop, "bfloat16")
             add_time(totals, kernel, count, ms=ms, plain_ms=plain_ms,
                      library_ms=library_ms, bound_ms=bound,
                      bytes_ms=bytes_ms, flop_ms=flop_ms)
@@ -668,9 +527,11 @@ def time_bottleneck_kernels(torch, F, fb, params, activations, device,
 def time_attention_kernel(torch, F, fa, gen, totals):
     """Per launch at batch 256 bf16 for each MAE shape, on the strided
     qkv views the service passes; the JSON totals are per mae_base
-    forward (12 launches)."""
+    forward."""
     n = 256
-    for config, h, l, d, count in ATTENTION:
+    for config, h, l, d in ATTENTION:
+        count = launches_per_forward(config, "attention", torch.bfloat16)[
+            "fused_attention"]
         q, k, v = attention_inputs(torch, gen, (n, h, l, d), torch.bfloat16)
         ms = time_ms(torch, lambda: fa.fused_attention(q, k, v))
         plain_ms = time_ms(torch, lambda: fa.fused_attention_ref(q, k, v),
@@ -678,9 +539,7 @@ def time_attention_kernel(torch, F, fa, gen, totals):
         library_ms = time_ms(
             torch, lambda: F.scaled_dot_product_attention(q, k, v))
         nbytes, flop = attention_cost(n, h, l, d, 2)
-        bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-        flop_ms = flop / PEAK_BF16_FLOP_PER_S * 1e3
-        bound = max(bytes_ms, flop_ms)
+        bound, bytes_ms, flop_ms = bound_ms(nbytes, flop, "bfloat16")
         if config == "mae_base":
             add_time(totals, "fused_attention", count, ms=ms,
                      plain_ms=plain_ms, library_ms=library_ms,
@@ -698,13 +557,19 @@ def time_layer_norm_kernel(torch, F, ln, gen, totals):
     calls, median of 5), beside the byte bound (x read once, y written
     once), the plain version, ``F.layer_norm`` (bf16 affine) and a copy of
     the same bytes, yardsticks the port never calls; the JSON totals are
-    per mae_base forward (25 launches)."""
+    per mae_base forward."""
     def per_call(fn, reps=5, calls=20):
         return time_ms(torch, lambda: [fn() for _ in range(calls)],
                        reps=reps) / calls
 
-    for config, l, d, eps, count in LAYER_NORM:
-        x, w, b = layer_norm_inputs(torch, gen, (256, l, d), torch.bfloat16)
+    gen.manual_seed(SEED)
+    for config, l, d, eps in LAYER_NORM:
+        count = launches_per_forward(config, "attention", torch.bfloat16)[
+            "layer_norm"]
+        x = torch.randn(256, l, d, device="cuda", generator=gen).to(
+            torch.bfloat16)
+        w = 1 + 0.05 * torch.randn(d, device="cuda", generator=gen)
+        b = 0.05 * torch.randn(d, device="cuda", generator=gen)
         wb, bb, copy = w.to(x.dtype), b.to(x.dtype), torch.empty_like(x)
         ms = per_call(lambda: ln.layer_norm(x, w, b, eps))
         plain_ms = per_call(lambda: ln.layer_norm_ref(x, w, b, eps), reps=3,
@@ -745,7 +610,7 @@ def time_f32_eval_batches(torch, F, fb, params, activations, nets, device,
     per block its ms at the launch shape the wrapper chose (tile, cluster,
     blocks), at the choice with the cluster capped at 1 and at one block
     a tile (the shape before the cluster split), beside its plain version
-    and cuDNN f32; per forward (16 launches on v1) each of them beside the
+    and cuDNN f32; per forward (the launches on v1) each of them beside the
     bound (f32 outside the tensor cores); then one whole f32 forward on
     each route of ``nets`` (v1 and off) at the eval batches.  Fails if a
     launch runs at another shape than ``pick_launch`` chose, or a batch-1
@@ -758,11 +623,13 @@ def time_f32_eval_batches(torch, F, fb, params, activations, nets, device,
         0, 256, size=(max(EVAL_BATCHES), 64, 64, 3), dtype=np.uint8)).to(
             device)
     clusters = {}
+    counts = resnet50_block_counts("v1")
     for n in F32_BATCHES:
         totals = {"fused_bottleneck": dict.fromkeys(
             ("ms", "tile_only_ms", "one_block_ms", "plain_ms", "library_ms",
              "bytes_ms", "flop_ms"), 0.0)}
-        for prefix, h, s, cin, p, cout, ds, count, _ in BLOCKS:
+        for prefix, h, s, cin, p, cout, ds in BLOCKS:
+            count = counts[("fused_bottleneck", prefix)]
             w = fb.block_weights(params, prefix, torch.float32)
             x = activations(n, h, cin, torch.float32)
             chosen, tile_only, one_block = f32_launch_shapes(
@@ -794,12 +661,12 @@ def time_f32_eval_batches(torch, F, fb, params, activations, nets, device,
                 torch, lambda: fb.fused_bottleneck_ref(x, *w, stride=s))
             library_ms = time_ms(torch, library_block(
                 torch, F, params, prefix, s, ds, torch.float32, x))
-            nbytes, flop = block_cost(n, h, s, cin, p, cout, ds, 4, False)
+            _, bytes_ms, flop_ms = bound_ms(*block_cost(
+                n, h, s, cin, p, cout, ds, 4, False), "float32")
             add_time(totals, "fused_bottleneck", count, ms=ms,
                      tile_only_ms=tile_only_ms, one_block_ms=one_block_ms,
                      plain_ms=plain_ms, library_ms=library_ms,
-                     bytes_ms=nbytes / PEAK_BYTES_PER_S * 1e3,
-                     flop_ms=flop / PEAK_F32_FLOP_PER_S * 1e3)
+                     bytes_ms=bytes_ms, flop_ms=flop_ms)
             print(f"time fused_bottleneck {prefix} f32 n={n} (x{count}/"
                   f"forward): ms {ms:.4f} [tile {tile}, cluster {cluster}, "
                   f"{blocks} blocks]; tile only: {at(tile_only, tile_only_ms)}"
@@ -815,7 +682,7 @@ def time_f32_eval_batches(torch, F, fb, params, activations, nets, device,
                 f"{time_ms(torch, lambda: net._forward(frames[:n])):.4f} ms"
                 for route, net in nets.items())
         print(f"f32 batch {n}, per forward: fused_bottleneck ms "
-              f"{t['ms']:.4f} (16 launches; tile only "
+              f"{t['ms']:.4f} ({sum(counts.values())} launches; tile only "
               f"{t['tile_only_ms']:.4f}, one block a tile "
               f"{t['one_block_ms']:.4f}), bound "
               f"{max(t['bytes_ms'], t['flop_ms']):.4f} ({by}), plain "
@@ -941,30 +808,31 @@ def quiet(fn, *args, **kwargs):
         return fn(*args, **kwargs)
 
 
-def check_slice_kernel_shapes(torch, fb, params, activations, max_err):
-    """The f32 engine of fused_bottleneck at the batch sizes the BC slice
-    gives it (1 and 4 eval envs, the bulk embedder's 32), every ResNet-50
-    block shape, against the plain version at 1e-4."""
-    for prefix, h, s, cin, p, cout, ds, _, _ in BLOCKS:
-        w = fb.block_weights(params, prefix, torch.float32)
-        for n in (1, 4, 32):
-            x = activations(n, h, cin, torch.float32)
-            got = fb.fused_bottleneck(x, *w, stride=s)
-            torch.cuda.synchronize()
-            want = fb.fused_bottleneck_ref(x, *w, stride=s)
-            torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
-            err = (got - want).abs().max().item()
-            max_err["fused_bottleneck"] = max(max_err["fused_bottleneck"],
-                                              err)
-        print(f"fused_bottleneck {prefix} float32 n=1,4,32: max_abs_err "
-              f"{err:.3g} (atol=rtol=1e-4)", flush=True)
+def counted_runs(torch, label, fn, *args):
+    """Run ``fn`` quietly with every launch counter at 0 before it; gate
+    its launches on resnet50's f32 v1 launches a forward times the
+    encoder forwards it made, at least one."""
+    from pvr_habitat_tpu_torch.models.embedding_net import EmbeddingNet
+
+    reset_launches()
+    start = time.perf_counter()
+    with ForwardCounter(torch, EmbeddingNet) as forwards:
+        out = quiet(fn, *args)
+    seconds = time.perf_counter() - start
+    if not forwards.count:
+        raise AssertionError(f"{label}: no encoder forward")
+    counts = gate_launches(label, launches_per_forward(
+        "resnet50", "v1", torch.float32), forwards.count)
+    print(f"{label}: {forwards.count} encoder forwards, launches "
+          f"{counts}, {seconds:.1f} s", flush=True)
+    return out
 
 
-def bc_slice(torch, fb, fa, device, smi, workdir):
+def bc_slice(torch, device, smi, workdir):
     """Phase 7: datagen -> bulk embedding (resnet50 f32) -> train steps on
     the card against the CPU -> main_bc_2 with eval_batch 1 and 4 ->
-    main_test -> main_bc_1, with the launch counters against the encoder
-    forwards in each run, then the slice's times.  Returns the launches."""
+    main_test -> main_bc_1, each run's launches gated on its encoder
+    forwards (``counted_runs``), then the eval time at K = 4."""
     import os
     import random
     from concurrent.futures import ThreadPoolExecutor
@@ -979,29 +847,6 @@ def bc_slice(torch, fb, fa, device, smi, workdir):
     from pvr_habitat_tpu_torch.utils import checkpoint as ckpt
     from pvr_habitat_tpu_torch.utils.flags import default_flags
 
-    launches = {k: 0 for k in KERNELS}
-
-    def counted(label, fn, *args):
-        """Run ``fn`` with every count at 0 before it; gate its launches
-        on 16 per encoder forward and none of the flat kernel."""
-        reset_launches(fb, fa)
-        start = time.perf_counter()
-        with ForwardCounter(torch, EmbeddingNet) as forwards:
-            out = quiet(fn, *args)
-        seconds = time.perf_counter() - start
-        counts = count_launches(fb, fa)
-        want = {"fused_bottleneck": 16 * forwards.count,
-                "fused_bottleneck_flat": 0, "fused_attention": 0,
-                "layer_norm": 0}
-        if counts != want or not forwards.count:
-            raise AssertionError(f"{label}: launches {counts}, "
-                                 f"{forwards.count} encoder forwards")
-        for k in KERNELS:
-            launches[k] += counts[k]
-        print(f"{label}: {forwards.count} encoder forwards, launches "
-              f"{counts}, {seconds:.1f} s", flush=True)
-        return out
-
     # 1. data: expert trajectories, then the bulk embedder on the card
     flags = save_opt_trajectories.build_tool_parser().parse_args(
         ["--env", BC_ENV, "--save_path", workdir,
@@ -1014,8 +859,8 @@ def bc_slice(torch, fb, fa, device, smi, workdir):
         ["--env", BC_ENV, "--data_path", workdir, "--embedding_name",
          "resnet50", "--source", "pickle", "--disable_pretrained_embedding"])
     start = time.perf_counter()
-    path = counted("bulk embedder (resnet50 f32, batch 32)",
-                   save_embedded_obs.run, flags)
+    path = counted_runs(torch, "bulk embedder (resnet50 f32, batch 32)",
+                        save_embedded_obs.run, flags)
     seconds = time.perf_counter() - start
     data = formats.load_pickle(path)
     n = len(data["action"])
@@ -1084,17 +929,6 @@ def bc_slice(torch, fb, fa, device, smi, workdir):
         raise AssertionError(f"train steps: {card}")
     _, perturbed = run_steps(*fresh(noise=1e-7))
     drift = np.abs(perturbed / card - 1)
-    torch.cuda.synchronize()
-    start = time.perf_counter()
-    for row in starts * 2:
-        state, m = step(state, sampler.gather_unrolls(tensors, row, t))
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - start
-    print(f"training: {b * t * 2 * BC_STEPS / seconds:.1f} frames/s "
-          f"({seconds / (2 * BC_STEPS) * 1e3:.2f} ms a step of B {b} x T "
-          f"{t}, eval excluded) [{smi}]", flush=True)
-    profile_call(torch, lambda: step(
-        state, sampler.gather_unrolls(tensors, starts[0], t)), "train step")
 
     # 3. the trainer (main_bc_2) with eval_batch 1 and 4, main_test,
     # main_bc_1 (embed at load); their seconds include the CPU steps'
@@ -1111,8 +945,9 @@ def bc_slice(torch, fb, fa, device, smi, workdir):
         stem = f"{BC_ENV}_emresnet50_s1_{BC_ENV}"
         for k in (1, 4):
             save = f"bc_k{k}"
-            stats = counted(f"main_bc_2 eval_batch {k}", main_bc_2.run,
-                            bc_flags(save, eval_batch=k))[BC_ENV]
+            stats = counted_runs(torch, f"main_bc_2 eval_batch {k}",
+                                 main_bc_2.run,
+                                 bc_flags(save, eval_batch=k))[BC_ENV]
             losses = stats["training_loss"][1:]
             if len(losses) != 2 or not np.isfinite(losses).all() or not all(
                     os.path.isfile(os.path.join(workdir, save, stem + ext))
@@ -1130,14 +965,16 @@ def bc_slice(torch, fb, fa, device, smi, workdir):
         cwd = os.getcwd()
         os.chdir(workdir)
         try:
-            stats = counted("main_test", main_test.run, flags)
+            stats = counted_runs(torch, "main_test", main_test.run, flags)
         finally:
             os.chdir(cwd)
         if len(stats["episode_step"]) != 2:
             raise AssertionError(f"main_test: {stats}")
         print(f"main_test: {stats}", flush=True)
-        stats = counted("main_bc_1 (embed at load)", main_bc_1.run, bc_flags(
-            "bc1", max_frames=b * t * 2, debug=True))[BC_ENV]
+        stats = counted_runs(torch, "main_bc_1 (embed at load)",
+                             main_bc_1.run, bc_flags(
+                                 "bc1", max_frames=b * t * 2,
+                                 debug=True))[BC_ENV]
         if len(stats["training_loss"]) != 2 or \
                 not np.isfinite(stats["training_loss"][1]):
             raise AssertionError(f"main_bc_1: {stats}")
@@ -1163,8 +1000,9 @@ def bc_slice(torch, fb, fa, device, smi, workdir):
           f"change of the gradient norm per step "
           f"{[float(f'{x:.3g}') for x in drift[:, 1]]}", flush=True)
 
-    # 4. eval times on the trained policy: ms per env step, and the share
-    # the encoder takes at the same batch
+    # 4. eval at K = 4 lockstep envs (K = 1 is the eval cell's) on the
+    # trained policy: ms per env step, and the share the encoder takes at
+    # the same batch
     payload = ckpt.load_checkpoint(checkpoint)
     params, _ = ckpt.split_actor_state(payload["actor_model_state_dict"],
                                        device)
@@ -1175,48 +1013,27 @@ def bc_slice(torch, fb, fa, device, smi, workdir):
           f"{time.perf_counter() - start:.1f} s", flush=True)
     env_flags = default_flags(env=BC_ENV, embedding_name="resnet50",
                               max_episode_steps=BC_EPISODE_STEPS)
-    keys = ["episode_return"]
+    k = max(EVAL_BATCHES)
+    runner = StepCounter(evaluate.FusedPolicyRunner(policy, net))
+    envs = [quiet(make_environment, env_flags, None, actor_id=i)
+            for i in range(1, k + 1)]
+    evaluate.batched_test_fused(runner, envs, ["episode_return"], k)  # warm-up
+    runner.count = 0
+    start = time.perf_counter()
+    evaluate.batched_test_fused(runner, envs, ["episode_return"], k)
+    step_ms = (time.perf_counter() - start) / runner.count * 1e3
     frames = np.random.RandomState(SEED).randint(
-        0, 256, size=(4, 64, 64, 3), dtype=np.uint8)
-    for k in (1, 4):
-        if k == 1:
-            runner = StepCounter(policy)
-            env = quiet(make_environment, env_flags, net)
-
-            def run_eval():
-                return evaluate.test(runner, env, keys, 1)
-        else:
-            runner = StepCounter(evaluate.FusedPolicyRunner(policy, net))
-            envs = [quiet(make_environment, env_flags, None, actor_id=i)
-                    for i in range(1, k + 1)]
-
-            def run_eval():
-                return evaluate.batched_test_fused(runner, envs, keys, k)
-        run_eval()                      # warm-up
-        runner.count = 0
+        0, 256, size=(k, 64, 64, 3), dtype=np.uint8)
+    encoder = []
+    for _ in range(20):
         start = time.perf_counter()
-        run_eval()
-        step_ms = (time.perf_counter() - start) / runner.count * 1e3
-        encoder = []
-        for _ in range(20):
-            start = time.perf_counter()
-            net(frames[:k])
-            encoder.append((time.perf_counter() - start) * 1e3)
-        enc_ms = statistics.median(encoder)
-        if k == 1:
-            env_output = env.initial()
-            core = policy.initial_state(1)
-
-            def one_step():
-                out, _ = policy(env_output, core)
-                env.step(out["action"])
-
-            profile_call(torch, one_step, "eval step K=1")
-        print(f"eval K={k}: {step_ms:.3f} ms per env step over "
-              f"{runner.count} steps; encoder (resnet50 f32, batch {k}, "
-              f"upload and download included) {enc_ms:.3f} ms, "
-              f"{enc_ms / step_ms:.1%} of a step [{smi}]", flush=True)
-    return launches
+        net(frames)
+        encoder.append((time.perf_counter() - start) * 1e3)
+    enc_ms = statistics.median(encoder)
+    print(f"eval K={k}: {step_ms:.3f} ms per env step over "
+          f"{runner.count} steps; encoder (resnet50 f32, batch {k}, "
+          f"upload and download included) {enc_ms:.3f} ms, "
+          f"{enc_ms / step_ms:.1%} of a step [{smi}]", flush=True)
 
 
 def load_net(cls, name, checkpoint_dir, **kwargs):
@@ -1230,12 +1047,12 @@ def load_net(cls, name, checkpoint_dir, **kwargs):
         return cls(name, checkpoint_dir=checkpoint_dir, **kwargs)
 
 
-def zoo_slice(torch, fb, fa, frames, device, smi, workdir):
+def zoo_slice(torch, frames, device, smi, workdir):
     """Phase 8a and 8b: each zoo encoder at full width on its card default
     route (bf16) answers a batch of 1, a batch of 3 and the bulk path,
     held against its f32 ``off`` path, which is held against the CPU;
     the uber fusion also in f32 on v1 at the eval batches; then frames/s
-    at batch 256 bf16.  Returns the launches."""
+    at batch 256 bf16."""
     import os
 
     from pvr_habitat_tpu_torch.models.embedding_net import EmbeddingNet
@@ -1244,13 +1061,12 @@ def zoo_slice(torch, fb, fa, frames, device, smi, workdir):
     ckpt_dir = os.path.join(workdir, "zoo")
     os.makedirs(ckpt_dir)
     start = time.perf_counter()
-    for name, _, _ in ZOO:
+    for name, _ in ZOO:
         zoo_checkpoints.write(name, ckpt_dir, SEED)
     print(f"zoo checkpoints (seeded, trained-like BN) written in "
           f"{time.perf_counter() - start:.1f} s", flush=True)
-    launches = {k: 0 for k in KERNELS}
     dev_frames = torch.from_numpy(frames[:BULK_BATCH]).to(device)
-    for name, route, per_forward in ZOO:
+    for name, route in ZOO:
         start = time.perf_counter()
         net32 = load_net(EmbeddingNet, name, ckpt_dir, fused="off")
         ref = f32_reference(torch, net32, frames)
@@ -1266,28 +1082,21 @@ def zoo_slice(torch, fb, fa, frames, device, smi, workdir):
                        compute_dtype=torch.bfloat16)
         if net.fused != route:
             raise AssertionError(f"{name} default route {net.fused}")
-        counts = drive_service(torch, fb, fa, net, frames, ref, per_forward,
-                               f"{name} route {route}")
-        for k in KERNELS:
-            launches[k] += counts[k]
+        drive_service(torch, net, frames, ref)
         nets = {route: net}
         if route != "off":
             # f32 on the kernel route at the eval batches, against off
             v1 = load_net(EmbeddingNet, name, ckpt_dir, fused=route)
-            reset_launches(fb, fa)
-            for n in EVAL_BATCHES:
-                got, want = v1(frames[:n]), net32(frames[:n])
+            reset_launches()
+            answers = [v1(frames[:n]) for n in EVAL_BATCHES]
+            gate_launches(f"{name} f32 {route}", launches_per_forward(
+                name, route, torch.float32), len(EVAL_BATCHES))
+            for n, got in zip(EVAL_BATCHES, answers):
+                want = net32(frames[:n])
                 np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
                 print(f"{name} f32 {route} vs off, batch {n}: max_abs_err "
                       f"{np.abs(got - want).max():.3g} (atol=rtol=1e-4)",
                       flush=True)
-            counts = count_launches(fb, fa)
-            want = {k: per_forward.get(k, 0) * len(EVAL_BATCHES)
-                    for k in KERNELS}
-            if counts != want:
-                raise AssertionError(f"{name} f32 {route}: launches {counts}")
-            for k in KERNELS:
-                launches[k] += counts[k]
             del v1
             nets["off"] = load_net(EmbeddingNet, name, ckpt_dir,
                                    compute_dtype=torch.bfloat16, fused="off")
@@ -1303,15 +1112,14 @@ def zoo_slice(torch, fb, fa, frames, device, smi, workdir):
             profile_call(torch, lambda: net._forward(dev_frames),
                          f"{name} {route}")
         print(f"{name}: {time.perf_counter() - start:.1f} s", flush=True)
-    return launches
 
 
-def finetune_slice(torch, fb, fa, device, smi, workdir):
+def finetune_slice(torch, device, smi, workdir):
     """Phase 8c: the conv policy on phase 7's raw pickle: train steps at
     full width on the card against the CPU from the same state (in a
     worker thread beside the trainer runs), ``main_bc_finetune`` with
     eval_batch 1 and 4, the training frames/s and the eval ms per env
-    step.  Nothing here reaches a kernel; returns the (zero) launches."""
+    step.  Nothing here reaches a kernel."""
     import os
     import random
     from concurrent.futures import ThreadPoolExecutor
@@ -1381,21 +1189,19 @@ def finetune_slice(torch, fb, fa, device, smi, workdir):
                 env=BC_ENV, to_env=BC_ENV, data_path=workdir, save_path=save,
                 max_frames=b * t * 4, eval_frequency=2, n_episodes_test=2,
                 max_episode_steps=BC_EPISODE_STEPS, eval_batch=k)
-            reset_launches(fb, fa)
+            label = f"main_bc_finetune eval_batch {k}"
+            reset_launches()
             start = time.perf_counter()
             stats = quiet(main_bc_finetune.run, flags)[BC_ENV]
             seconds = time.perf_counter() - start
-            counts = count_launches(fb, fa)
+            gate_launches(label, dict.fromkeys(KERNELS, 0), 0)
             losses = stats["training_loss"][1:]
-            if any(counts.values()) or len(losses) != 2 \
-                    or not np.isfinite(losses).all() \
+            if len(losses) != 2 or not np.isfinite(losses).all() \
                     or sorted(os.listdir(save)) != [stem + ".pickle",
                                                     stem + ".tar"]:
-                raise AssertionError(f"main_bc_finetune eval_batch {k}: "
-                                     f"{stats}, launches {counts}")
-            print(f"main_bc_finetune eval_batch {k}: frames "
-                  f"{stats['frames']}, losses {losses}, returns "
-                  f"{stats['episode_return']}, launches {counts}, "
+                raise AssertionError(f"{label}: {stats}")
+            print(f"{label}: frames {stats['frames']}, losses {losses}, "
+                  f"returns {stats['episode_return']}, no kernel launch, "
                   f"{seconds:.1f} s", flush=True)
         return os.path.join(workdir, "finetune_k1", stem + ".tar")
 
@@ -1438,7 +1244,6 @@ def finetune_slice(torch, fb, fa, device, smi, workdir):
               f"envs over {runner.count} steps (conv policy on raw frames) "
               f"[{smi}]",
               flush=True)
-    return {k: 0 for k in KERNELS}
 
 
 def check_int_mm(torch, qz, device, smi):
@@ -1567,7 +1372,7 @@ def int8_card_vs_cpu(torch, emb, frames, name):
           + plain, flush=True)
 
 
-def int8_slice(torch, fb, fa, frames, refs, device, smi, workdir):
+def int8_slice(torch, frames, refs, device, smi, workdir):
     """Phase 9: each encoder of ``INT8`` through
     ``ShardedEmbedder(quantize=True)``: its int8 forward on the card
     against the CPU on the same inputs and scales, ``embed_all`` over the
@@ -1575,7 +1380,7 @@ def int8_slice(torch, fb, fa, frames, refs, device, smi, workdir):
     the f32 off path, int8 frames/s beside the bf16 default route's, and a
     profile of the resnet50 int8 forward; then the CLI with
     ``--sharded_embed`` and ``--quantize_embed`` on phase 7's raw pickle
-    against its embedded pickle.  Returns the launches."""
+    against its embedded pickle."""
     import math
     import os
     import shutil
@@ -1588,9 +1393,8 @@ def int8_slice(torch, fb, fa, frames, refs, device, smi, workdir):
 
     check_int_mm(torch, qz, device, smi)
     ckpt_dir = os.path.join(workdir, "zoo")
-    launches = {k: 0 for k in KERNELS}
     dev_frames = torch.from_numpy(frames[:BULK_BATCH]).to(device)
-    for name, route, per_forward, gate in INT8:
+    for name, route, gate in INT8:
         start = time.perf_counter()
         # resnet50 and mae_base: the seeded init of phases 4 and 5;
         # clip_rn50 and maskrcnn_l3: phase 8's checkpoints
@@ -1604,15 +1408,11 @@ def int8_slice(torch, fb, fa, frames, refs, device, smi, workdir):
         emb = load_net(ShardedEmbedder, name, ckpt, quantize=True, **kwargs)
         if emb.fused != route:
             raise AssertionError(f"{name} int8 route {emb.fused}")
-        reset_launches(fb, fa)
+        reset_launches()
         got = emb.embed_all(frames)
-        counts = count_launches(fb, fa)
         forwards = math.ceil(len(frames) / BULK_BATCH) + 1   # + calibration
-        want = {k: per_forward.get(k, 0) * forwards for k in KERNELS}
-        if counts != want:
-            raise AssertionError(f"{name} int8: launches {counts} != {want}")
-        for k in KERNELS:
-            launches[k] += counts[k]
+        counts = gate_launches(f"{name} int8", launches_per_forward(
+            name, route, torch.bfloat16), forwards)
         if got.shape != (len(frames), emb.out_size) \
                 or not np.isfinite(got).all():
             raise AssertionError(f"{name} int8: {got.shape}")
@@ -1648,7 +1448,7 @@ def int8_slice(torch, fb, fa, frames, refs, device, smi, workdir):
     # the CLI on phase 7's raw pickle (resnet50, f32 on v1 / int8)
     want = formats.load_pickle(
         formats.embedded_path(workdir, BC_ENV, "resnet50"))["obs"]
-    for option, per_forward in CLI_LAUNCHES.items():
+    for option, (route, dtype) in CLI_ROUTES.items():
         path = os.path.join(workdir, option.strip("-"))
         os.makedirs(path)
         shutil.copy(formats.raw_path(workdir, BC_ENV),
@@ -1657,16 +1457,13 @@ def int8_slice(torch, fb, fa, frames, refs, device, smi, workdir):
             ["--env", BC_ENV, "--data_path", path, "--embedding_name",
              "resnet50", "--source", "pickle", "--embed_batch_size",
              str(BULK_BATCH), "--disable_pretrained_embedding", option])
-        reset_launches(fb, fa)
+        reset_launches()
         start = time.perf_counter()
         got = formats.load_pickle(quiet(save_embedded_obs.run, flags))["obs"]
         seconds = time.perf_counter() - start
-        counts = count_launches(fb, fa)
-        forwards = math.ceil(len(want) / BULK_BATCH)
-        if counts != {k: per_forward.get(k, 0) * forwards for k in KERNELS}:
-            raise AssertionError(f"CLI {option}: launches {counts}")
-        for k in KERNELS:
-            launches[k] += counts[k]
+        counts = gate_launches(f"CLI {option}", launches_per_forward(
+            "resnet50", route, getattr(torch, dtype)),
+            math.ceil(len(want) / BULK_BATCH))
         if got.shape != want.shape:
             raise AssertionError(f"CLI {option}: {got.shape}")
         cos = row_cosine(torch, torch.from_numpy(np.asarray(got)),
@@ -1679,35 +1476,6 @@ def int8_slice(torch, fb, fa, frames, refs, device, smi, workdir):
               f"{len(got)} samples in {seconds:.1f} s (tool wall time, "
               f"encoder builds included), launches {counts}, min cosine "
               f"vs phase 7's pickle {cos:.6f} [{smi}]", flush=True)
-    return launches
-
-
-class PickTimer:
-    """Seconds spent in ``fused_bottleneck._pick`` calls that missed its
-    cache (the f32 engine's launch-shape search, run once for each new
-    batch size and block shape), on any thread, while it is open (a
-    ``with`` block); ``_pick`` is restored on exit."""
-
-    def __init__(self, fb):
-        self.fb, self.original = fb, fb._pick
-        self.seconds, self.searches = 0.0, 0
-
-        def pick(*args):
-            misses = self.original.cache_info().misses
-            start = time.perf_counter()
-            out = self.original(*args)
-            if self.original.cache_info().misses != misses:
-                self.seconds += time.perf_counter() - start
-                self.searches += 1
-            return out
-
-        fb._pick = pick
-
-    def __enter__(self):
-        return self
-
-    def __exit__(self, *exc):
-        self.fb._pick = self.original
 
 
 class ServedNet:
@@ -1770,21 +1538,17 @@ def serve_clients(address):
     return [r for c in sorted(results) for r in results[c]], wall
 
 
-def serve_slice(torch, fb, fa, device, smi):
+def serve_slice(torch, device, smi):
     """Phase 10a: an ``EmbeddingServer`` in this process serves each
     encoder of ``SERVE`` (the card default route) to ``SERVE_CLIENTS``
     concurrent clients; launches gated per micro-batch, every reply held
     against a direct ``EmbeddingNet`` call on the same frames (f32 at
-    1e-3) or against the f32 off path (bf16, per-frame cosine > 0.99).
-    Returns the launches."""
-    import collections
-
+    1e-3) or against the f32 off path (bf16, per-frame cosine > 0.99)."""
     from pvr_habitat_tpu_torch.models.embedding_net import EmbeddingNet
     from pvr_habitat_tpu_torch.tools.serve_embeddings import EmbeddingServer
 
-    launches = {k: 0 for k in KERNELS}
     refs = {}
-    for name, dtype_name, per_batch in SERVE:
+    for name, dtype_name in SERVE:
         label = f"server {name} {dtype_name}"
         dtype = getattr(torch, dtype_name)
         start = time.perf_counter()
@@ -1797,20 +1561,14 @@ def serve_slice(torch, fb, fa, device, smi):
               f"dispatcher thread: {served.seconds[0] * 1e3:.1f} ms) in "
               f"{time.perf_counter() - start:.1f} s", flush=True)
         served.sizes, served.seconds = [], []
-        reset_launches(fb, fa)
+        reset_launches()
         try:
-            with PickTimer(fb) as picks:
-                replies, wall = serve_clients(server.address)
+            replies, wall = serve_clients(server.address)
         finally:
             server.close()
-        counts = count_launches(fb, fa)
         batches = len(served.sizes)
-        want = {k: per_batch.get(k, 0) * batches for k in KERNELS}
-        if counts != want:
-            raise AssertionError(f"{label}: launches {counts} != {want} "
-                                 f"over {batches} micro-batches")
-        for k in KERNELS:
-            launches[k] += counts[k]
+        counts = gate_launches(label, launches_per_forward(
+            name, net.fused, dtype), batches)
         frames = np.concatenate([f for f, _, _ in replies])
         got = np.concatenate([r for _, r, _ in replies])
         if sum(served.sizes) != len(frames) or not np.isfinite(got).all():
@@ -1848,16 +1606,12 @@ def serve_slice(torch, fb, fa, device, smi):
               f"{dict(sorted(hist.items()))}; forwards {busy:.2f} s (ms: "
               f"first {fwd[0]:.1f}, median {np.median(fwd):.1f}, max "
               f"{fwd.max():.1f}, the slowest request's "
-              f"{rt.max():.1f}); "
-              f"launch-shape searches {picks.searches} taking "
-              f"{picks.seconds * 1e3:.1f} ms, {picks.seconds / busy:.2%} of "
-              f"the forwards [{smi}]", flush=True)
+              f"{rt.max():.1f}) [{smi}]", flush=True)
         del net, served, server
         torch.cuda.empty_cache()
-    return launches
 
 
-def png_slice(torch, fb, fa, device, smi, workdir):
+def png_slice(torch, device, smi, workdir):
     """Phase 10b: PNG datagen of phase 7's ``PNG_TRAJECTORIES``
     trajectories, decoded against phase 7's raw pickle (the same
     trajectories, bit for bit); ``save_embedded_obs`` with its default
@@ -1867,7 +1621,7 @@ def png_slice(torch, fb, fa, device, smi, workdir):
     (``read_png_trajectories(embed_fn=...)``) alone, on an encoder built
     before the clock starts, with the decode prefetch on (the tool's
     default) and off: embed frames/s, and the time inside the encoder's
-    forwards beside the loop's wall time.  Returns the launches."""
+    forwards beside the loop's wall time."""
     import os
 
     from pvr_habitat_tpu_torch.data import formats, native
@@ -1900,27 +1654,19 @@ def png_slice(torch, fb, fa, device, smi, workdir):
           f"equal to phase 7's frames bit for bit; decode "
           f"{n / decode_s:.1f} frames/s", flush=True)
 
-    launches = {k: 0 for k in KERNELS}
-
     def gate(label, forwards):
-        counts = count_launches(fb, fa)
-        want_counts = {k: 0 for k in KERNELS}
-        want_counts["fused_bottleneck"] = 16 * forwards
-        if counts != want_counts or forwards != PNG_TRAJECTORIES:
-            raise AssertionError(f"{label}: launches {counts}, {forwards} "
-                                 "forwards")
-        for k in KERNELS:
-            launches[k] += counts[k]
-        return counts
+        if forwards != PNG_TRAJECTORIES:
+            raise AssertionError(f"{label}: {forwards} forwards")
+        return gate_launches(label, launches_per_forward(
+            "resnet50", "v1", torch.float32), forwards)
 
     flags = save_embedded_obs.build_tool_parser().parse_args(
         ["--env", BC_ENV, "--data_path", root, "--embedding_name",
          "resnet50", "--disable_pretrained_embedding"]
         + (["--disable_cuda"] if device.type == "cpu" else []))
-    reset_launches(fb, fa)
+    reset_launches()
     start = time.perf_counter()
-    with ForwardCounter(torch, EmbeddingNet) as forwards, \
-            PickTimer(fb) as picks:
+    with ForwardCounter(torch, EmbeddingNet) as forwards:
         path = quiet(save_embedded_obs.run, flags)
     tool_s = time.perf_counter() - start
     counts = gate("PNG embed", forwards.count)
@@ -1932,12 +1678,11 @@ def png_slice(torch, fb, fa, device, smi, workdir):
           f"forwards, batch = a trajectory's frames): launches {counts}; max "
           f"abs err vs embed_batches {np.abs(got - direct).max():.3g} "
           f"(1e-3); tool wall time {tool_s:.2f} s, {n / tool_s:.1f} "
-          f"frames/s with set-up (encoder build, weight save, "
-          f"{picks.searches} first-seen launch-shape searches taking "
-          f"{picks.seconds * 1e3:.1f} ms) [{smi}]", flush=True)
+          f"frames/s with set-up (encoder build, weight save) [{smi}]",
+          flush=True)
 
     for prefetch in (2, 0):
-        reset_launches(fb, fa)
+        reset_launches()
         with ForwardCounter(torch, EmbeddingNet, timed=True) as timer:
             torch.cuda.synchronize()
             start = time.perf_counter()
@@ -1954,10 +1699,9 @@ def png_slice(torch, fb, fa, device, smi, workdir):
               f"{device_ms:.1f} ms (CUDA events, a forward's own dispatch "
               f"gaps included), outside them "
               f"{1 - device_ms / wall_ms:.1%} [{smi}]", flush=True)
-    return launches
 
 
-def ranks_slice(torch, fb, fa, device, smi, workdir):
+def ranks_slice(torch, device, smi, workdir):
     """Phase 10c: two ranks on the one card over gloo
     (``parallel/dryrun.py``): ``embed_local`` of ``RANK_EMBED_FRAMES``
     frames (resnet50 f32, batch 32), each rank's rows against one process
@@ -1965,7 +1709,7 @@ def ranks_slice(torch, fb, fa, device, smi, workdir):
     width with BatchNorm on phase 7's embeddings, the ranks bitwise equal
     and each step against one process from the same state at rtol 1e-3;
     last, the dry run (``multichip``) as one rank with the card to itself,
-    which takes NCCL.  Returns the ranks' launches."""
+    which takes NCCL."""
     import os
 
     from pvr_habitat_tpu_torch.data import formats, sampler
@@ -1974,7 +1718,7 @@ def ranks_slice(torch, fb, fa, device, smi, workdir):
     from pvr_habitat_tpu_torch.train import bc_step
     from pvr_habitat_tpu_torch.utils.flags import default_flags
 
-    launches = {k: 0 for k in KERNELS}
+    per_forward = launches_per_forward("resnet50", "v1", torch.float32)
     prefix = os.path.join(workdir, "embed_rank")
     start = time.perf_counter()
     # each rank keeps its share of the host's cores
@@ -1992,7 +1736,7 @@ def ranks_slice(torch, fb, fa, device, smi, workdir):
     want = ShardedEmbedder("resnet50", batch_size=32, pretrained=False,
                            compute_dtype=torch.float32,
                            device=device).embed_all(frames)
-    rows, errs = 0, []
+    rows, errs, launches = 0, [], []
     for rank in range(RANKS):
         out = np.load(f"{prefix}{rank}.npz")
         start_row, stop = int(out["start"]), int(out["stop"])
@@ -2000,19 +1744,18 @@ def ranks_slice(torch, fb, fa, device, smi, workdir):
                                    atol=1e-3, rtol=1e-3)
         errs.append(float(np.abs(out["local"] - want[start_row:stop]).max()))
         counts = dict(zip(out["kernels"].tolist(), out["launches"].tolist()))
-        per_rank = {k: 0 for k in KERNELS}
-        per_rank["fused_bottleneck"] = 16 * math.ceil((stop - start_row) / 32)
-        if counts != per_rank:
-            raise AssertionError(f"rank {rank} embed: launches {counts}")
-        for k in KERNELS:
-            launches[k] += counts[k]
+        forwards = math.ceil((stop - start_row) / 32)
+        if counts != {k: per_forward[k] * forwards for k in KERNELS}:
+            raise AssertionError(f"rank {rank} embed: launches {counts} "
+                                 f"over {forwards} forwards")
+        launches.append(counts)
         rows += stop - start_row
     if rows != RANK_EMBED_FRAMES:
         raise AssertionError(f"ranks embedded {rows} rows")
     print(f"embed_local over {RANKS} ranks on one card: {rows} frames "
           f"(resnet50 f32, batch 32) in {seconds:.1f} s (process starts "
           f"included); max abs err vs one process {max(errs):.3g} (1e-3); "
-          f"launches {launches}; {sorted(backends)}", flush=True)
+          f"launches by rank {launches}; {sorted(backends)}", flush=True)
 
     prefix = os.path.join(workdir, "steps_rank")
     snapshots = os.path.join(workdir, "snapshots")
@@ -2085,17 +1828,15 @@ def ranks_slice(torch, fb, fa, device, smi, workdir):
           f"{time.perf_counter() - start:.1f} s: "
           f"{[x for x in log.splitlines() if 'backend' in x]}; DP steps "
           "and the sharded embedder OK", flush=True)
-    return launches
 
 
-def convert_slice(torch, fb, fa, frames, device, smi, workdir):
+def convert_slice(torch, frames, device, smi, workdir):
     """Phase 11a: ``tools/zoo_checkpoints.py`` writes reference-layout
     ``moco_aug`` and ``mae_base`` files, the port's ``convert_checkpoint``
     converts each on the card, and ``EmbeddingNet(compute_dtype=bf16)``
     built from the converted file (BN folded, as a frozen encoder folds
     it at build) answers exactly as the one built from the original
-    through the pretrained path, with the launches of ``CONVERT`` a
-    forward.  Returns the launches."""
+    through the pretrained path, its launches gated."""
     import os
 
     from pvr_habitat_tpu_torch.models import convert
@@ -2106,8 +1847,7 @@ def convert_slice(torch, fb, fa, frames, device, smi, workdir):
 
     directory = os.path.join(workdir, "convert")
     os.makedirs(directory)
-    launches = {k: 0 for k in KERNELS}
-    for name, per_forward in CONVERT:
+    for name in CONVERT:
         start = time.perf_counter()
         (original,) = zoo_checkpoints.write(name, directory, SEED)
         out = os.path.join(directory, f"{name}.converted.tar")
@@ -2123,15 +1863,11 @@ def convert_slice(torch, fb, fa, frames, device, smi, workdir):
             else:
                 net = load_net(EmbeddingNet, name, directory,
                                compute_dtype=torch.bfloat16)
-            reset_launches(fb, fa)
+            reset_launches()
             answers.append(net(frames[:CONVERT_FRAMES]))
-            counts = count_launches(fb, fa)
-            want = {k: per_forward.get(k, 0) for k in KERNELS}
-            if counts != want:
-                raise AssertionError(f"{name} from the {source} file: "
-                                     f"launches {counts}, not {want}")
-            for k in KERNELS:
-                launches[k] += counts[k]
+            counts = gate_launches(f"{name} from the {source} file",
+                                   launches_per_forward(
+                                       name, net.fused, torch.bfloat16), 1)
         if not np.array_equal(*answers) or not np.isfinite(answers[0]).all():
             raise AssertionError(
                 f"{name}: the converted file's answer differs by "
@@ -2141,7 +1877,6 @@ def convert_slice(torch, fb, fa, frames, device, smi, workdir):
               f"converted file and from the original, {CONVERT_FRAMES} "
               f"frames: equal, shape {answers[0].shape}; launches a forward "
               f"{counts}", flush=True)
-    return launches
 
 
 class CountingExecutor:
@@ -2149,26 +1884,26 @@ class CountingExecutor:
     records each job's runner, flags, encoder forwards, launches and
     seconds."""
 
-    def __init__(self, torch, fb, fa, sweep):
-        self.torch, self.fb, self.fa = torch, fb, fa
+    def __init__(self, torch, sweep):
+        self.torch = torch
         self.local = sweep.LocalExecutor()
         self.jobs = []
 
     def submit(self, fn, flags):
         from pvr_habitat_tpu_torch.models.embedding_net import EmbeddingNet
 
-        reset_launches(self.fb, self.fa)
+        reset_launches()
         start = time.perf_counter()
         with ForwardCounter(self.torch, EmbeddingNet) as forwards:
             out = quiet(self.local.submit, fn, flags)
         self.jobs.append(dict(runner=fn.__name__, flags=flags,
                               forwards=forwards.count,
-                              launches=count_launches(self.fb, self.fa),
+                              launches=read_launches(),
                               seconds=time.perf_counter() - start))
         return out
 
 
-def sweep_slice(torch, fb, fa, device, smi, workdir):
+def sweep_slice(torch, device, smi, workdir):
     """Phase 11b: the sweep (``tools/sweep.py``) over one FakeImageNav
     scene: datagen, then the embedding sweep (resnet50 on the raw
     pickle), a BC grid of resnet50 (``main_bc_2`` on those embeddings)
@@ -2178,8 +1913,7 @@ def sweep_slice(torch, fb, fa, device, smi, workdir):
     elsewhere); then a second seed of the resnet50 job through
     ``SubprocessExecutor`` (the port's ``main_bc_2`` as a process, seed
     1 skipped as completed); every job's stats pickle and checkpoint,
-    finite losses; and a second call of each sweep submits nothing.
-    Returns the in-process jobs' launches."""
+    finite losses; and a second call of each sweep submits nothing."""
     import os
 
     from pvr_habitat_tpu_torch.data import formats
@@ -2194,7 +1928,7 @@ def sweep_slice(torch, fb, fa, device, smi, workdir):
     quiet(save_opt_trajectories.gen_data_habitat, flags)
     print(f"sweep datagen: {SWEEP_TRAJECTORIES} {SWEEP_ENV} trajectories "
           f"in {time.perf_counter() - start:.1f} s", flush=True)
-    executor = CountingExecutor(torch, fb, fa, sweep)
+    executor = CountingExecutor(torch, sweep)
     embed = dict(env=[SWEEP_ENV], embedding_name=["resnet50"],
                  batch_size=[32])
     grid = dict(env=[SWEEP_ENV], to_env=[SWEEP_ENV],
@@ -2214,19 +1948,17 @@ def sweep_slice(torch, fb, fa, device, smi, workdir):
     for label, n_jobs, call in calls:
         if len(call(executor)) != n_jobs:
             raise AssertionError(f"{label}: jobs {executor.jobs}")
-    launches = {k: 0 for k in KERNELS}
     for job in executor.jobs:
         name = job["flags"].embedding_name
-        want = {k: 0 for k in KERNELS}
-        if name == "resnet50":
-            want["fused_bottleneck"] = 16 * job["forwards"]
+        # f32 on the card default route: v1 for resnet50; the random
+        # encoder launches no kernel
+        per_forward = launches_per_forward(name, "v1", torch.float32)
+        want = {k: per_forward[k] * job["forwards"] for k in KERNELS}
         if job["launches"] != want or (job["runner"] != "runner_finetune"
                                        and not job["forwards"]):
             raise AssertionError(f"sweep job {job['runner']} {name}: "
                                  f"{job['forwards']} forwards, launches "
                                  f"{job['launches']}")
-        for k in KERNELS:
-            launches[k] += job["launches"][k]
         print(f"sweep job {job['runner']} ({name}, xpid "
               f"{job['flags'].xpid}): {job['forwards']} "
               f"encoder forwards, launches {job['launches']}, "
@@ -2259,10 +1991,9 @@ def sweep_slice(torch, fb, fa, device, smi, workdir):
     print(f"sweep outputs: {len(stems)} runs with stats and checkpoint, "
           f"{SWEEP_EPOCHS} finite losses each, and the embedded pickle; a "
           "second call of each sweep submitted nothing", flush=True)
-    return launches
 
 
-def tensor_parallel_slice(torch, fb, fa, device, smi, workdir):
+def tensor_parallel_slice(torch, device, smi, workdir):
     """Phase 11c: tensor parallelism of the policy on a (1, 2) mesh, two
     ranks on the one card over gloo (``parallel/dryrun.py``), at full
     width with BatchNorm (B 32, T 100, obs 2048, phase 7's ResNet-50
@@ -2272,14 +2003,11 @@ def tensor_parallel_slice(torch, fb, fa, device, smi, workdir):
     and the checkpoints (keys, shapes, params within 1e-4).  (2) The
     ``steps`` task on the same mesh: each step against one process from
     the same state (rtol 1e-4), ms a step beside one process, and a
-    step's all-gathers and sharded inputs' all-reduces alone.  Returns
-    the one-process run's launches (the ranks count theirs in their own
-    processes)."""
+    step's all-gathers and sharded inputs' all-reduces alone."""
     import os
     import shlex
 
     from pvr_habitat_tpu_torch.data import formats, sampler
-    from pvr_habitat_tpu_torch.models.embedding_net import EmbeddingNet
     from pvr_habitat_tpu_torch.parallel import dryrun
     from pvr_habitat_tpu_torch.train import bc, bc_step
     from pvr_habitat_tpu_torch.utils import checkpoint as ckpt
@@ -2313,17 +2041,9 @@ def tensor_parallel_slice(torch, fb, fa, device, smi, workdir):
         for key in ("loss", "gnorm", "ret"):
             if not np.array_equal(r[key], ranks[0][key], equal_nan=True):
                 raise AssertionError(f"the ranks differ in {key}")
-    reset_launches(fb, fa)
-    start = time.perf_counter()
-    with ForwardCounter(torch, EmbeddingNet) as forwards:
-        one = quiet(bc.run, default_flags(**kw, batch_norm=True,
-                                          save_path=one_dir))[BC_ENV]
-    one_s = time.perf_counter() - start
-    launches = count_launches(fb, fa)
-    if launches["fused_bottleneck"] != 16 * forwards.count \
-            or not forwards.count:
-        raise AssertionError(f"one-process run: launches {launches}, "
-                             f"{forwards.count} forwards")
+    one = counted_runs(torch, "main_bc_2 in one process", bc.run,
+                       default_flags(**kw, batch_norm=True,
+                                     save_path=one_dir))[BC_ENV]
     got = np.stack([ranks[0]["loss"][1:], ranks[0]["gnorm"][1:]], axis=1)
     want = np.stack([one["training_loss"][1:], one["gradient_norm"][1:]],
                     axis=1)
@@ -2345,9 +2065,8 @@ def tensor_parallel_slice(torch, fb, fa, device, smi, workdir):
                     for k, v in trees[1][0].items())
     print(f"main_bc_2 --mesh_shape 1,2 on {RANKS} ranks ({TP_STEPS} steps, "
           f"B {b}, T {t}, obs 2048, batch_norm, eval after each on the "
-          f"gathered params) in {mesh_s:.1f} s (process starts included), "
-          f"one process {one_s:.1f} s ({forwards.count} encoder forwards, "
-          f"launches {launches}); the ranks equal; free-running against one "
+          f"gathered params) in {mesh_s:.1f} s (process starts included); "
+          f"the ranks equal; free-running against one "
           f"process: losses {got[:, 0].tolist()} vs "
           f"{want[:, 0].tolist()}, rel err per step loss "
           f"{[float(f'{x:.3g}') for x in free_rel[:, 0]]}, gradient norm "
@@ -2411,7 +2130,6 @@ def tensor_parallel_slice(torch, fb, fa, device, smi, workdir):
     np.testing.assert_allclose(got, want, rtol=1e-4)
     if param_err > 1e-4:
         raise AssertionError(f"checkpoint params differ by {param_err}")
-    return launches
 
 
 def main():
@@ -2457,6 +2175,15 @@ def main():
                              f"{(BF16_INSTANCES | F32_INSTANCES) - instances}")
     print(f"build phase {time.perf_counter() - t0:.1f} s")
 
+    t0 = phase("3 kernels vs plain versions: the card tests")
+    tests = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-p",
+         "no:cacheprovider", "-m", "cuda", CARD_TESTS], timeout=1800)
+    if tests.returncode:
+        raise AssertionError(f"{CARD_TESTS}: exit {tests.returncode}")
+    print(f"kernel phase {time.perf_counter() - t0:.1f} s")
+
+    t0 = phase("4 slice: EmbeddingNet resnet50 bf16")
     # Real ResNet-50 weights (seeded init, BN folded) for every block.
     net32 = EmbeddingNet("resnet50", pretrained=False,
                          compute_dtype=torch.float32, fused="off")
@@ -2468,31 +2195,18 @@ def main():
         return torch.randn(n, h, h, c, device=device, generator=gen,
                            dtype=torch.float32).relu_().to(dtype)
 
-    t0 = phase("3 kernels vs plain versions")
-    max_err = {k: 0.0 for k in KERNELS}
-    check_bottleneck_kernels(torch, fb, params, activations, device, max_err)
-    check_attention_kernel(torch, fa, gen, max_err)
-    check_layer_norm_kernel(torch, ln, gen, max_err)
-    print(f"kernel phase {time.perf_counter() - t0:.1f} s")
-
-    t0 = phase("4 slice: EmbeddingNet resnet50 bf16")
     frames = np.random.RandomState(SEED).randint(
         0, 256, size=(1024, 64, 64, 3), dtype=np.uint8)
     ref = f32_reference(torch, net32, frames)
-    nets = {}
-    launches = {k: 0 for k in KERNELS}
-    for route, per_forward in ROUTE_LAUNCHES.items():
-        net = EmbeddingNet("resnet50", pretrained=False,
-                           compute_dtype=torch.bfloat16, fused=route)
-        nets[route] = net
-        counts = drive_service(torch, fb, fa, net, frames, ref, per_forward,
-                               f"resnet50 route {route}")
-        for k in KERNELS:
-            launches[k] += counts[k]
     default = EmbeddingNet("resnet50", pretrained=False,
                            compute_dtype=torch.bfloat16)
     if default.fused != "v1":
         raise AssertionError(f"resnet50 default route {default.fused}")
+    drive_service(torch, default, frames, ref)
+    v2 = EmbeddingNet("resnet50", pretrained=False,
+                      compute_dtype=torch.bfloat16, fused="v2")
+    drive_service(torch, v2, frames, ref)
+    del default
     print(f"slice phase {time.perf_counter() - t0:.1f} s")
 
     t0 = phase("5 slice: EmbeddingNet mae_base bf16")
@@ -2505,10 +2219,8 @@ def main():
                        compute_dtype=torch.bfloat16)
     if mae.fused != "attention":
         raise AssertionError(f"mae_base default route {mae.fused}")
-    counts = drive_service(torch, fb, fa, mae, frames, mae_ref, MAE_LAUNCHES,
-                           "mae_base route attention")
-    for k in KERNELS:
-        launches[k] += counts[k]
+    drive_service(torch, mae, frames, mae_ref)
+    del mae
     print(f"slice phase {time.perf_counter() - t0:.1f} s")
 
     t0 = phase("6 times (batch 256, bf16)")
@@ -2518,30 +2230,26 @@ def main():
     time_bottleneck_kernels(torch, F, fb, params, activations, device, totals)
     time_attention_kernel(torch, F, fa, gen, totals)
     time_layer_norm_kernel(torch, F, ln, gen, totals)
+    # end to end on the routes no benchmark cell runs
     n = 256
     dev_frames = torch.from_numpy(frames[:n]).to(device)
-    e2e = [("resnet50", route, nets.get(route)) for route in
-           ("off", "v1", "v2", "hybrid")]
-    e2e += [("mae_base", "off", None), ("mae_base", "attention", mae)]
-    for name, route, net in e2e:
+    for name, route, net in (("resnet50", "off", None), ("resnet50", "v2", v2),
+                             ("mae_base", "off", None)):
         net = net or EmbeddingNet(name, pretrained=False,
                                   compute_dtype=torch.bfloat16, fused=route)
         ms = time_ms(torch, lambda: net._forward(dev_frames), reps=5,
                      warmup=1)
         print(f"e2e {name} {route}: {n / ms * 1e3:.1f} frames/s "
               f"({ms:.3f} ms per batch of {n}, frames on device)", flush=True)
-        if route in ("off", "v1", "attention"):
+        if route == "off":
             profile_call(torch, lambda: net._forward(dev_frames),
                          f"{name} {route}")
+    del v2, net
     print(f"times phase {time.perf_counter() - t0:.1f} s")
 
     t0 = phase("7 slice: BC trainer and online eval (resnet50)")
-    check_slice_kernel_shapes(torch, fb, params, activations, max_err)
-    print(f"f32 kernel checks {time.perf_counter() - t0:.1f} s", flush=True)
     workdir = tempfile.TemporaryDirectory()
-    counts = bc_slice(torch, fb, fa, device, smi, workdir.name)
-    for k in KERNELS:
-        launches[k] += counts[k]
+    bc_slice(torch, device, smi, workdir.name)
     start = time.perf_counter()
     v1_32 = EmbeddingNet("resnet50", pretrained=False,
                          compute_dtype=torch.float32, fused="v1")
@@ -2549,54 +2257,39 @@ def main():
                           {"v1": v1_32, "off": net32}, device, smi)
     print(f"f32 eval-batch times {time.perf_counter() - start:.1f} s")
     print(f"slice phase {time.perf_counter() - t0:.1f} s")
-    del v1_32, nets, default, mae
+    del v1_32
 
     t0 = phase("8 slice: encoder zoo (bf16) and finetune")
     with workdir:
-        for part in (
-                lambda: zoo_slice(torch, fb, fa, frames, device, smi,
-                                  workdir.name),
-                lambda: finetune_slice(torch, fb, fa, device, smi,
-                                       workdir.name)):
-            counts = part()
-            for k in KERNELS:
-                launches[k] += counts[k]
+        zoo_slice(torch, frames, device, smi, workdir.name)
+        finetune_slice(torch, device, smi, workdir.name)
         print(f"slice phase {time.perf_counter() - t0:.1f} s")
 
         t0 = phase("9 slice: int8 serving and the bulk embedder")
-        counts = int8_slice(torch, fb, fa, frames,
-                            {"resnet50": ref, "mae_base": mae_ref}, device,
-                            smi, workdir.name)
-        for k in KERNELS:
-            launches[k] += counts[k]
+        int8_slice(torch, frames, {"resnet50": ref, "mae_base": mae_ref},
+                   device, smi, workdir.name)
         print(f"slice phase {time.perf_counter() - t0:.1f} s")
 
         t0 = phase("10 slice: serving and scale-out")
         for part in (
-                lambda: serve_slice(torch, fb, fa, device, smi),
-                lambda: png_slice(torch, fb, fa, device, smi, workdir.name),
-                lambda: ranks_slice(torch, fb, fa, device, smi,
-                                    workdir.name)):
+                lambda: serve_slice(torch, device, smi),
+                lambda: png_slice(torch, device, smi, workdir.name),
+                lambda: ranks_slice(torch, device, smi, workdir.name)):
             start = time.perf_counter()
-            counts = part()
-            for k in KERNELS:
-                launches[k] += counts[k]
+            part()
             print(f"part {time.perf_counter() - start:.1f} s", flush=True)
         print(f"slice phase {time.perf_counter() - t0:.1f} s")
 
         t0 = phase("11 slice: sweep, checkpoint conversion, tensor "
                    "parallelism")
         for part in (
-                lambda: convert_slice(torch, fb, fa, frames, device, smi,
+                lambda: convert_slice(torch, frames, device, smi,
                                       workdir.name),
-                lambda: sweep_slice(torch, fb, fa, device, smi,
-                                    workdir.name),
-                lambda: tensor_parallel_slice(torch, fb, fa, device, smi,
+                lambda: sweep_slice(torch, device, smi, workdir.name),
+                lambda: tensor_parallel_slice(torch, device, smi,
                                               workdir.name)):
             start = time.perf_counter()
-            counts = part()
-            for k in KERNELS:
-                launches[k] += counts[k]
+            part()
             print(f"part {time.perf_counter() - start:.1f} s", flush=True)
         print("the habitat and gym adapters (envs/habitat_adapter.py, "
               "envs/gym_adapter.py) do not run here: neither habitat nor "
@@ -2605,20 +2298,20 @@ def main():
               "(tests/test_torch_adapters.py)", flush=True)
         print(f"slice phase {time.perf_counter() - t0:.1f} s")
 
+    forward = {k: launches_per_forward(name, route, torch.bfloat16)[k]
+               for k, (name, route) in TIMED_FORWARD.items()}
     line = {"kernels": [{
         "name": k, "route": "cuda", "source": KERNELS[k][1],
-        "replaces": KERNELS[k][0],
-        "launches": launches[k], "max_abs_err": max_err[k],
+        "replaces": KERNELS[k][0], "launches": forward[k],
         "ms": totals[k]["ms"], "plain_ms": totals[k]["plain_ms"],
         "bound_ms": totals[k]["bound_ms"],
         "bound_by": ("bytes" if totals[k]["bytes_ms"] >= totals[k]["flop_ms"]
                      else "operations"),
         "library_ms": totals[k]["library_ms"],
     } for k in KERNELS]}
-    print("kernel times are per forward at batch 256 bf16: ResNet-50 on the "
-          "route that runs the kernel on every block it can (v1: 16 "
-          "launches, v2: 13), mae_base on attention (fused_attention 12 "
-          "launches, layer_norm 25)")
+    print("kernel times and launches are per forward at batch 256 bf16: "
+          + ", ".join(f"{k} on {name} {route} ({forward[k]} launches)"
+                      for k, (name, route) in TIMED_FORWARD.items()))
     print(smi)
     print(json.dumps(line))
     print(json.dumps({"ok": True, "device": {

@@ -7,8 +7,8 @@ forward runs the preprocess and the encoder on the device; eval mode
 returns numpy squeezed like the reference, train mode a tensor.
 
 ``fused`` picks the kernel route of the encoder: for a bottleneck
-ResNet's blocks ``off`` (``F.conv2d``), ``v1``, ``v2`` or ``hybrid`` (the
-Hopper kernels of ``ops/cuda/fused_bottleneck.py``); for an MAE ViT's
+ResNet's blocks ``off`` (``F.conv2d``), ``v1`` or ``v2`` (the Hopper
+kernels of ``ops/cuda/fused_bottleneck.py``); for an MAE ViT's
 attention cores ``off`` (the einsum core) or ``attention`` (the kernel of
 ``ops/cuda/attention.py``).  The route names the kernels it chooses
 between; kernels with no plain alternative on the card run on every

@@ -13,11 +13,11 @@ Parameter keys mirror the grafted torch modules: the original layer3
 blocks live under ``layer3.0.<i>...`` and the compress block under
 ``layer3.1...``.  Conv weights are OIHW.
 
-``apply_fused``, ``apply_fused_v2`` and ``apply_fused_hybrid`` route the
-bottleneck blocks through the Hopper kernels of
-``ops/cuda/fused_bottleneck.py``; the stem conv, max pool, basic blocks
-and compress grafts run on ``F.conv2d``/``F.max_pool2d``, the same work
-the JAX package leaves to XLA outside its Pallas kernels.  ``apply_int8``
+``apply_fused`` and ``apply_fused_v2`` route the bottleneck blocks
+through the Hopper kernels of ``ops/cuda/fused_bottleneck.py``; the stem
+conv, max pool, basic blocks and compress grafts run on
+``F.conv2d``/``F.max_pool2d``, the same work the JAX package leaves to
+XLA outside its Pallas kernels.  ``apply_int8``
 is the W8A8 serving path (``ops/quantize.py``).
 """
 
@@ -186,37 +186,17 @@ def apply_fused_v2(params, x, spec):
     return y.mean(dim=(1, 2))
 
 
-def apply_fused_hybrid(params, x, spec):
-    """The JAX package's per-stage selection: v1 for the three layer1
-    blocks, layer2 unfused, v2 for the identity blocks of layer3 and
-    layer4 behind unfused stride-2 heads (3 + 7 launches).  ``params``
-    must be BN-folded."""
-    if spec.block != "bottleneck" or spec.cut is not None:
-        raise ValueError("the hybrid path covers the full bottleneck nets")
-    y = _stem(params, x)
-    for i in range(spec.layers[0]):
-        w = fb.block_weights(params, f"layer1.{i}", dtype=x.dtype)
-        y = fb.fused_bottleneck(y, *w, stride=1)
-    y = _stage(y, params, "layer2", spec, 1, False)
-    for stage_idx in (2, 3):
-        name = f"layer{stage_idx + 1}"
-        y = _bottleneck_block(y, params, f"{name}.0", 2, True, False)
-        y = _flat_blocks(y, params, name, 1, spec.layers[stage_idx])
-    return y.mean(dim=(1, 2))
-
-
-FUSED_APPLY = {"v1": apply_fused, "v2": apply_fused_v2,
-               "hybrid": apply_fused_hybrid}
+FUSED_APPLY = {"v1": apply_fused, "v2": apply_fused_v2}
 
 
 def fused_routes(spec):
-    """The ``fused`` values a spec can run: v2 and hybrid cover the full
-    bottleneck nets only; basic-block nets have no kernel."""
+    """The ``fused`` values a spec can run: v2 covers the full bottleneck
+    nets only; basic-block nets have no kernel."""
     if spec.block != "bottleneck":
         return ("off",)
     if spec.cut is not None:
         return ("off", "v1")
-    return ("off", "v1", "v2", "hybrid")
+    return ("off", "v1", "v2")
 
 
 # -----------------------------------------------------------------------------

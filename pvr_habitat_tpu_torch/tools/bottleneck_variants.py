@@ -10,7 +10,8 @@ The tree's ``csrc/fused_bottleneck.cu`` is always built, as ``tree``.
 ``--source LABEL=PATH`` builds another source with the same C interface
 (an earlier version of the kernel, or a copy with other constants); each
 such build is held against the plain version (per-image cosine > 0.999,
-``chip_smoke.py``'s gate) at every shape before it is timed.  ``--diag
+the bf16 gate of ``tests/test_torch_cuda_kernels.py``) at every shape
+before it is timed.  ``--diag
 LABEL=PATH`` builds and times a source without that check: a variant
 that leaves out one part of the work (a feed, the products) to show what
 that part costs.

@@ -1,6 +1,6 @@
 """Port fused attention vs. the JAX package's Pallas kernel in interpret
 mode (CPU).  The Hopper kernel itself is held against this plain version
-in tests/test_torch_cuda_kernels.py and chip_smoke.py, on the card."""
+in tests/test_torch_cuda_kernels.py, on the card."""
 
 import numpy as np
 import pytest

@@ -1,6 +1,8 @@
 """The Hopper kernels (fused bottleneck, fused attention, LayerNorm) vs.
-their plain PyTorch versions, on the card.  Imports no JAX, so it runs where
-only PyTorch is installed:
+their plain PyTorch versions, on the card: at the shapes the port runs them
+at and at the edges of each kernel's tiling.  ``chip_smoke.py`` runs this
+file as its kernel phase.  Imports no JAX, so it runs where only PyTorch
+is installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda_kernels.py
@@ -12,6 +14,7 @@ import pytest
 import torch
 
 from pvr_habitat_tpu_torch.models import resnet
+from pvr_habitat_tpu_torch.models.embedding_net import EmbeddingNet
 from pvr_habitat_tpu_torch.ops.cuda import attention as fa
 from pvr_habitat_tpu_torch.ops.cuda import build
 from pvr_habitat_tpu_torch.ops.cuda import fused_bottleneck as fb
@@ -109,11 +112,76 @@ def test_bf16_kernels_match_plain_versions_at_a_ragged_cout(stride):
         torch.testing.assert_close(got, want, atol=tol, rtol=tol)
 
 
-# The f32 engine at the eval batches: ResNet-50's widths where one block a
-# tile left the card idle, (H in, stride, Cin, planes).
-F32_EVAL_BLOCKS = {"layer3.1": (14, 1, 1024, 256),
+# ResNet-50 at 224 input, one block of each shape: (H in, stride, Cin,
+# planes); "layerS.1" stands for every block of stage S after its first.
+RESNET50_BLOCKS = {"layer1.0": (56, 1, 64, 64), "layer1.1": (56, 1, 256, 64),
+                   "layer2.0": (56, 2, 256, 128),
+                   "layer2.1": (28, 1, 512, 128),
+                   "layer3.0": (28, 2, 512, 256),
+                   "layer3.1": (14, 1, 1024, 256),
                    "layer4.0": (14, 2, 1024, 512),
                    "layer4.1": (7, 1, 2048, 512)}
+
+
+@pytest.fixture(scope="module")
+def resnet50_params():
+    """The service's ResNet-50 weights: the seeded init, BN folded."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    return EmbeddingNet("resnet50", pretrained=False, device="cuda",
+                        fused="off").params
+
+
+def _row_cosine(got, want):
+    """The smallest cosine between a row of ``got`` and its row of
+    ``want``, one row a leading index."""
+    g, w = (t.float().reshape(t.shape[0], -1) for t in (got, want))
+    return float(torch.nn.functional.cosine_similarity(g, w, dim=1).min())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,n", [
+    (torch.float32, 1), (torch.float32, 4), (torch.float32, 8),
+    (torch.float32, 32), (torch.bfloat16, 256)],
+    ids=["f32-1", "f32-4", "f32-8", "f32-32", "bf16-256"])
+@pytest.mark.parametrize("block", list(RESNET50_BLOCKS))
+def test_kernels_at_resnet50_blocks(resnet50_params, block, dtype, n):
+    """Both kernels at every ResNet-50 block shape, with the service's
+    weights, against their plain versions: f32 at the batches the port
+    gives the f32 engine (1 and 4 eval envs, 8, the bulk embedder's 32)
+    within 1e-4 (TF32 off), bf16 at the bulk batch of 256 by each image's
+    cosine > 0.999; v2 at the stride-1 blocks, its border zero."""
+    torch.backends.cudnn.allow_tf32 = False
+    h, stride, cin, planes = RESNET50_BLOCKS[block]
+    w = fb.block_weights(resnet50_params, block, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(h + cin)
+    x = torch.randn(n, h, h, cin, device="cuda", generator=gen).relu_()
+    x = x.to(dtype)
+    runs = [(fb.fused_bottleneck(x, *w, stride=stride),
+             fb.fused_bottleneck_ref(x, *w, stride=stride))]
+    if stride == 1:
+        mask = torch.from_numpy(fb.flat_mask(h, h)).cuda()
+        xf = fb.to_padded_flat(x)
+        runs.append((fb.fused_bottleneck_flat(xf, mask, *w, h=h, w=h),
+                     fb.fused_bottleneck_flat_ref(xf, mask, *w, h=h, w=h)))
+    torch.cuda.synchronize()
+    for got, want in runs:
+        assert bool(torch.isfinite(got).all())
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        else:
+            assert _row_cosine(got, want) > 0.999
+    if stride == 1:
+        border = runs[1][0].reshape(n, h + 2, h + 2, 4 * planes)
+        for edge in (border[:, 0], border[:, -1], border[:, :, 0],
+                     border[:, :, -1]):
+            assert not edge.any()
+
+
+# The f32 engine at the eval batches: ResNet-50's widths where one block a
+# tile left the card idle.
+F32_EVAL_BLOCKS = {k: RESNET50_BLOCKS[k]
+                   for k in ("layer3.1", "layer4.0", "layer4.1")}
 
 
 @pytest.mark.cuda
@@ -191,8 +259,26 @@ def test_bf16_refuses_a_cluster():
 # Attention.  f32: the JAX test's 1e-5; only the summation order differs.
 # bf16: both round p to bf16 and the output to bf16 at the same points, so
 # a sum that lands on a rounding boundary moves one bf16 ulp: at most 2^-7
-# of the value (rtol), 3.9e-3 below 1 (atol).  (atol, rtol) per dtype.
+# of the value (rtol), 3.9e-3 below 1 (atol).  (atol, rtol) per dtype.  The
+# per-row relative norm error is then at most 2^-7 too; a whole row scaled
+# by a few percent (a lost mask, a wrong row sum) fails ATTN_BF16_ROW_REL,
+# and the row's cosine must stay above 0.999.
 ATTN_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (4e-3, 2.0 ** -7)}
+ATTN_BF16_ROW_REL = 1e-2
+
+
+def _assert_attention_matches(got, want, shape, dtype):
+    assert got.shape == shape and got.dtype == dtype
+    assert bool(torch.isfinite(got).all())
+    atol, rtol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), atol=atol,
+                               rtol=rtol)
+    if dtype == torch.bfloat16:
+        g = got.float().reshape(-1, shape[-1])
+        w = want.float().reshape(-1, shape[-1])
+        rel = (g - w).norm(dim=1) / w.norm(dim=1).clamp_min(1e-30)
+        assert float(rel.max()) <= ATTN_BF16_ROW_REL
+        assert _row_cosine(g, w) > 0.999
 
 
 @pytest.mark.cuda
@@ -213,11 +299,34 @@ def test_fused_attention_matches_plain_version(dtype, shape):
     got = fa.fused_attention(q, k, v)
     torch.cuda.synchronize()
     assert fa.launches["fused_attention"] == before + 1
-    assert got.shape == shape and got.dtype == dtype
-    want = fa.fused_attention_ref(q, k, v)
-    atol, rtol = ATTN_TOL[dtype]
-    torch.testing.assert_close(got.float(), want.float(), atol=atol,
-                               rtol=rtol)
+    _assert_attention_matches(got, fa.fused_attention_ref(q, k, v), shape,
+                              dtype)
+
+
+# The MAE encoders' attention cores: (heads, L, head dim)
+MAE_HEADS = {"mae_base": (12, 197, 64), "mae_large": (16, 197, 64),
+             "mae_huge": (16, 257, 80)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,n", [(torch.float32, 8),
+                                     (torch.bfloat16, 256)],
+                         ids=["f32-8", "bf16-256"])
+@pytest.mark.parametrize("config", list(MAE_HEADS))
+def test_fused_attention_at_the_mae_shapes(config, dtype, n):
+    """At each MAE's head shape, on (N, H, L, D) views of one
+    (N, L, 3, H, D) qkv product, the layout ``models/vit.py`` passes:
+    f32 at batch 8, bf16 at the bulk batch of 256."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    h, l, d = MAE_HEADS[config]
+    gen = torch.Generator(device="cuda").manual_seed(n + h + l + d)
+    qkv = torch.randn(n, l, 3, h, d, device="cuda", generator=gen).to(dtype)
+    q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
+    got = fa.fused_attention(q, k, v)
+    torch.cuda.synchronize()
+    _assert_attention_matches(got, fa.fused_attention_ref(q, k, v),
+                              (n, h, l, d), dtype)
 
 
 @pytest.mark.cuda
@@ -240,10 +349,8 @@ def test_fused_attention_bf16_tile_edges(shape):
                .to("cuda", torch.bfloat16) for _ in range(3))
     got = fa.fused_attention(q, k, v)
     torch.cuda.synchronize()
-    want = fa.fused_attention_ref(q, k, v)
-    atol, rtol = ATTN_TOL[torch.bfloat16]
-    torch.testing.assert_close(got.float(), want.float(), atol=atol,
-                               rtol=rtol)
+    _assert_attention_matches(got, fa.fused_attention_ref(q, k, v), shape,
+                              torch.bfloat16)
 
 
 @pytest.mark.cuda
@@ -315,6 +422,7 @@ def _near_a_bf16_boundary(v):
 def _assert_ln_matches(x, got, want):
     d = x.shape[-1]
     assert got.shape == x.shape and got.dtype == x.dtype
+    assert bool(torch.isfinite(got).all())
     if x.dtype == torch.float32:
         err = (got - want).abs().amax(-1) / want.abs().amax(-1)
         assert float(err.max()) <= LN_F32_TOL
@@ -361,6 +469,31 @@ def test_layer_norm_reads_the_strided_cls_rows(dtype):
     _assert_ln_matches(cls, got, ln.layer_norm_ref(cls, w, b, 1e-5))
     torch.testing.assert_close(got, ln.layer_norm(cls.contiguous(), w, b,
                                                   1e-5), atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config,shape,dtype,eps", [
+    ("mae_base", (256, 197, 768), torch.bfloat16, 1e-6),
+    ("mae_base", (8, 197, 768), torch.float32, 1e-6),
+    ("mae_huge", (256, 257, 1280), torch.bfloat16, 1e-6),
+    ("mae_huge", (8, 257, 1280), torch.float32, 1e-6),
+    # CLIP ViT-B/32's ln_post, on the CLS rows of (N, 50, 768)
+    ("clip_vit", (256, 50, 768), torch.bfloat16, 1e-5),
+    ("clip_vit", (256, 50, 768), torch.float32, 1e-5)],
+    ids=["mae_base-bf16-256", "mae_base-f32-8", "mae_huge-bf16-256",
+         "mae_huge-f32-8", "clip_vit-bf16-256", "clip_vit-f32-256"])
+def test_layer_norm_at_the_vit_shapes(config, shape, dtype, eps):
+    """At the ViT encoders' shapes: the MAEs' at the bulk batch of 256 in
+    bf16 and at 8 in f32, and CLIP's strided CLS rows, read in place."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    x, w, b = _ln_inputs(shape, dtype, seed=sum(shape))
+    if config == "clip_vit":
+        x = x[:, 0, :]
+        assert ln.kernel_rows(x, w, b).data_ptr() == x.data_ptr()
+    got = ln.layer_norm(x, w, b, eps)
+    torch.cuda.synchronize()
+    _assert_ln_matches(x, got, ln.layer_norm_ref(x, w, b, eps))
 
 
 @pytest.mark.cuda

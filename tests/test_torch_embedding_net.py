@@ -133,7 +133,7 @@ def test_unported_encoders_and_routes_raise():
 
 
 @pytest.mark.parametrize("name,routes", [
-    ("resnet50", ("off", "v1", "v2", "hybrid")),
+    ("resnet50", ("off", "v1", "v2")),
     ("mae_base", ("off", "attention")),
     ("random", ("off",))])
 def test_routes_and_cpu_default(name, routes):

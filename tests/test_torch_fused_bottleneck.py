@@ -1,7 +1,7 @@
 """Port fused-bottleneck blocks vs. the JAX package's Pallas kernels in
 interpret mode (CPU, f32).  The Hopper kernels themselves are held
-against these plain versions in tests/test_torch_cuda_kernels.py and
-chip_smoke.py, on the card."""
+against these plain versions in tests/test_torch_cuda_kernels.py, on the
+card."""
 
 import math
 

@@ -190,4 +190,4 @@ def test_uber_bases_are_not_fusions():
     for name in ("moco_aug_uber", "moco_croponly_uber"):
         handle = registry.build_encoder(name, pretrained=False, device="cpu")
         assert handle.out_size == 2048 and handle.sub_names == ()
-        assert handle.fused_routes == ("off", "v1", "v2", "hybrid")
+        assert handle.fused_routes == ("off", "v1", "v2")
