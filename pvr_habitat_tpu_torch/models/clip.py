@@ -10,7 +10,9 @@ the (width, output_dim) matrix applied as ``y @ proj``, not a Linear):
   positional embedding -> ln_pre -> 12 pre-LN resblocks with QuickGELU
   -> ln_post on CLS -> projection to 512.  The attention cores run on
   ``vit.multihead_attention``'s einsum core: at L = 50 no core meets the
-  attention kernel's condition (``ops/cuda/attention.kernel_applies``).
+  attention kernel's condition (``ops/cuda/attention.kernel_applies``);
+  its two projections are ``vit.block_linear``, the bias in the GEMM's
+  epilogue on the card in bf16.
 - RN50 (ModifiedResNet): 3-conv stem with avgpool, bottlenecks whose
   stride is an avgpool (conv strides are all 1), and an AttentionPool2d
   head (mean token as query, f32 softmax) to 1024.

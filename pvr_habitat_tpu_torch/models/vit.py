@@ -11,11 +11,14 @@ core, with its bf16 semantics (bf16 logits and exp, f32 normalizer) and
 1/sqrt(head) folded into the q projection; ``attention`` sends every
 core that meets ``ops/cuda/attention.kernel_applies`` (bf16, L >= 128)
 through the Hopper kernel with unscaled q, since the kernel scales
-internally, and leaves every other core on ``off``.  The projections
-and the MLP are plain products outside any kernel, as in the JAX
-package, and stay ``torch.matmul``.  Every LayerNorm, on either route,
-is ``common.layer_norm``: the kernel of ``ops/cuda/layer_norm.py`` on
-the card, its plain version on the CPU.
+internally, and leaves every other core on ``off``.  The four
+products of a block (qkv, the projection, fc1 with GELU, fc2) are
+``block_linear``: on the card in bf16, one cuBLASLt GEMM whose epilogue
+adds the bias (and takes fc1's tanh GELU); elsewhere the product, the
+bias add and ``common.gelu`` op by op, at the JAX package's rounding
+points.  Every LayerNorm, on either route, is ``common.layer_norm``:
+the kernel of ``ops/cuda/layer_norm.py`` on the card, its plain version
+on the CPU.
 
 ``mae_apply_int8`` is the W8A8 serving path (``ops/quantize.py``): the
 patch embedding and every block linear int8, LayerNorm and the attention
@@ -25,7 +28,9 @@ unscaled q; off the kernel it is the int8 block's own core (q times
 ``multihead_attention``'s.
 
 Spans (``utils/profiling.py``): ``vit.attn`` and ``vit.mlp`` around the
-two halves of every ``timm_block``; the int8 block has none.
+two halves of every ``timm_block``, and inside them ``vit.linear``
+around each product, its attribute ``epilogue`` ``bias``, ``bias_gelu``
+or ``plain``; the int8 block has none.
 """
 
 import math
@@ -83,6 +88,28 @@ def sincos_pos_embed_2d(embed_dim, grid_size, cls_token=False):
 # -----------------------------------------------------------------------------
 
 
+def block_linear(x, w, b, gelu=False):
+    """``x @ w.T + b`` over the rows of the 2-D contiguous ``x``, then
+    ``common.gelu`` where ``gelu``, in x's dtype.  On the card in bf16
+    the bias (and fc1's GELU, whose bf16 form is the tanh approximation)
+    rides the GEMM's cuBLASLt epilogue, ``BIAS`` or ``GELU_BIAS``: one
+    rounding of the f32 accumulator plus bias (and its GELU) where the
+    plain sequence rounds after each op.  Elsewhere (the CPU, f32 with
+    its exact-erf GELU) it is that sequence, the JAX package's."""
+    dt = x.dtype
+    w, b = w.to(dt), b.to(dt)
+    epilogue = "plain"
+    if x.is_cuda and dt == torch.bfloat16:
+        epilogue = "bias_gelu" if gelu else "bias"
+    with span("vit.linear", epilogue=epilogue):
+        if epilogue == "bias_gelu":
+            return torch._addmm_activation(b, x, w.T, use_gelu=True)
+        if epilogue == "bias":
+            return torch.addmm(b, x, w.T)
+        y = x @ w.T + b
+        return cm.gelu(y) if gelu else y
+
+
 def multihead_attention(x, wqkv, bqkv, wo, bo, num_heads, fused="off"):
     """x: (N, L, D).  ``wqkv``/``bqkv`` are the fused (3D, D)/(3D,)
     projection as timm ``attn.qkv`` stores it.  One product computes q,
@@ -99,7 +126,8 @@ def multihead_attention(x, wqkv, bqkv, wo, bo, num_heads, fused="off"):
         scale = torch.tensor(1.0 / math.sqrt(head), dtype=dt)
         wqkv = torch.cat([wqkv[:d] * scale, wqkv[d:]])
         bqkv = torch.cat([bqkv[:d] * scale, bqkv[d:]])
-    qkv = (x @ wqkv.T + bqkv).view(n, l, 3, num_heads, head)
+    qkv = block_linear(x.reshape(n * l, d), wqkv, bqkv)
+    qkv = qkv.view(n, l, 3, num_heads, head)
     q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))  # (N, H, L, head)
     if use_kernel:
         out = attn.fused_attention(q, k, v)
@@ -114,14 +142,14 @@ def multihead_attention(x, wqkv, bqkv, wo, bo, num_heads, fused="off"):
         else:
             probs = torch.softmax(logits.float(), dim=-1).to(dt)
         out = probs @ v
-    out = out.transpose(1, 2).reshape(n, l, d)
-    return out @ wo.to(dt).T + bo.to(dt)
+    out = out.transpose(1, 2).reshape(n * l, d)
+    return block_linear(out, wo, bo).view(n, l, d)
 
 
-def timm_block(x, p, prefix, num_heads, eps=1e-6, gelu=cm.gelu, fused="off"):
-    """timm ViT Block: pre-LN attention + MLP with residuals, each half
-    (its norm, its products and its residual add) in a span of its own,
-    ``vit.attn`` and ``vit.mlp``."""
+def timm_block(x, p, prefix, num_heads, eps=1e-6, fused="off"):
+    """timm ViT Block: pre-LN attention + MLP (GELU) with residuals, each
+    half (its norm, its products and its residual add) in a span of its
+    own, ``vit.attn`` and ``vit.mlp``."""
     with span("vit.attn"):
         y = cm.layer_norm(x, p, f"{prefix}.norm1", eps=eps)
         y = multihead_attention(
@@ -132,10 +160,11 @@ def timm_block(x, p, prefix, num_heads, eps=1e-6, gelu=cm.gelu, fused="off"):
     with span("vit.mlp"):
         y = cm.layer_norm(x, p, f"{prefix}.norm2", eps=eps)
         n, l, _ = y.shape
-        y = y.reshape(n * l, -1)
-        y = gelu(cm.linear(y, p, f"{prefix}.mlp.fc1"))
-        y = cm.linear(y, p, f"{prefix}.mlp.fc2")
-        return x + y.reshape(n, l, -1)
+        y = block_linear(y.reshape(n * l, -1), p[f"{prefix}.mlp.fc1.weight"],
+                         p[f"{prefix}.mlp.fc1.bias"], gelu=True)
+        y = block_linear(y, p[f"{prefix}.mlp.fc2.weight"],
+                         p[f"{prefix}.mlp.fc2.bias"])
+        return x + y.view(n, l, -1)
 
 
 # -----------------------------------------------------------------------------

@@ -1,8 +1,9 @@
 """The Hopper kernels (fused bottleneck, fused attention, LayerNorm) vs.
 their plain PyTorch versions, on the card: at the shapes the port runs them
-at and at the edges of each kernel's tiling.  ``chip_smoke.py`` runs this
-file as its kernel phase.  Imports no JAX, so it runs where only PyTorch
-is installed:
+at and at the edges of each kernel's tiling; and the ViT block's products
+in the GEMM's cuBLASLt epilogue against the plain sequence they replace.
+``chip_smoke.py`` runs this file as its kernel phase.  Imports no JAX, so
+it runs where only PyTorch is installed:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
         tests/test_torch_cuda_kernels.py
@@ -13,7 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from pvr_habitat_tpu_torch.models import resnet
+from pvr_habitat_tpu_torch.models import common as cm
+from pvr_habitat_tpu_torch.models import resnet, vit
 from pvr_habitat_tpu_torch.models.embedding_net import EmbeddingNet
 from pvr_habitat_tpu_torch.ops.cuda import attention as fa
 from pvr_habitat_tpu_torch.ops.cuda import build
@@ -520,3 +522,140 @@ def test_layer_norm_raises_on_the_card_rather_than_falling_back(d, dtype):
     with pytest.raises(ValueError):
         ln.layer_norm(x, w, torch.zeros_like(w))
     assert ln.launches["layer_norm"] == before
+
+
+# The ViT block's four products in bf16 (``models/vit.py::block_linear``):
+# the bias, and fc1's bias + tanh GELU, in the GEMM's epilogue, one
+# rounding of the f32 result where the plain sequence rounds the product,
+# the sum and the GELU each to bf16.  Against the f32 product of the same
+# bf16 operands (+ the f32 bias, + the tanh GELU), the epilogue's worst
+# row-relative error is at most the plain sequence's, with EPILOGUE_MARGIN
+# to spare.
+EPILOGUE_MARGIN = 1.1
+# (rows at the bulk batch of 256, width) of each MAE the benchmark runs
+VIT_ROWS = {"mae_base": (256 * 197, 768), "mae_huge": (256 * 257, 1280)}
+# product: (in, out) in units of the width, GELU
+VIT_PRODUCTS = {"qkv": (1, 3, False), "proj": (1, 1, False),
+                "fc1": (1, 4, True), "fc2": (4, 1, False)}
+
+
+def _product_operands(config, product, seed):
+    """bf16 rows ~ N(0, 1) (a LayerNorm's output), a weight ~ N(0, 1/in)
+    and a bias ~ N(0, 0.25), so the bias moves every output."""
+    rows, d = VIT_ROWS[config]
+    din, dout, gelu = VIT_PRODUCTS[product]
+    din, dout = din * d, dout * d
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*s):
+        return torch.randn(*s, device="cuda", generator=gen)
+
+    return (randn(rows, din).bfloat16(),
+            (randn(dout, din) / din ** 0.5).bfloat16(),
+            (0.5 * randn(dout)).bfloat16(), gelu)
+
+
+def _plain_product(x, w, b, gelu):
+    y = x @ w.T + b
+    return cm.gelu(y) if gelu else y
+
+
+def _worst_row_rel(got, want):
+    got = got.float()
+    return float(((got - want).norm(dim=1) / want.norm(dim=1)).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("product", list(VIT_PRODUCTS))
+@pytest.mark.parametrize("config", list(VIT_ROWS))
+def test_vit_product_epilogue_at_the_mae_shapes(monkeypatch, config,
+                                                product):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    x, w, b, gelu = _product_operands(config, product, seed=len(product))
+    got = vit.block_linear(x, w, b, gelu=gelu)
+    plain = _plain_product(x, w, b, gelu)
+    want = x.float() @ w.float().T + b.float()
+    if gelu:
+        want = torch.nn.functional.gelu(want, approximate="tanh")
+    torch.cuda.synchronize()
+    assert got.shape == plain.shape and got.dtype == torch.bfloat16
+    assert bool(torch.isfinite(got).all())
+    assert _worst_row_rel(got, want) <= (
+        EPILOGUE_MARGIN * _worst_row_rel(plain, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("product", list(VIT_PRODUCTS))
+@pytest.mark.parametrize("config", list(VIT_ROWS))
+def test_vit_product_is_one_gemm_kernel(config, product):
+    """Each product launches one GEMM kernel (its epilogue named in it)
+    and no elementwise add or GELU kernel.  Three calls under the
+    profiler: three launches, counted where the host makes them, since
+    the device's record of a profiler run's first kernels can go missing."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    from torch.profiler import ProfilerActivity, profile
+
+    x, w, b, gelu = _product_operands(config, product, seed=3)
+    vit.block_linear(x, w, b, gelu=gelu)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            vit.block_linear(x, w, b, gelu=gelu)
+        torch.cuda.synchronize()
+    events = prof.events()
+    launches = [e.name for e in events if e.device_type.name == "CPU"
+                and e.name.startswith(("cudaLaunchKernel", "cuLaunchKernel"))]
+    kernels = {e.name for e in events if e.device_type.name == "CUDA"
+               and not e.name.startswith(("Memset", "Memcpy"))}
+    assert len(launches) == 3, launches
+    assert len(kernels) == 1, kernels
+    assert not any("elementwise" in k or "Gelu" in k for k in kernels), (
+        kernels)
+
+
+def _vit_block_params(d, seed):
+    """One block's weights as the checkpoint holds them, f32: xavier-like
+    products, biases ~ N(0, 0.25), LayerNorm affines 1 + N(0, 0.05) and
+    N(0, 0.05)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*s):
+        return torch.randn(*s, device="cuda", generator=gen)
+
+    p = {}
+    for name, (din, dout, _) in VIT_PRODUCTS.items():
+        key = f"b.{'attn' if name in ('qkv', 'proj') else 'mlp'}.{name}"
+        p[f"{key}.weight"] = randn(dout * d, din * d) / (din * d) ** 0.5
+        p[f"{key}.bias"] = 0.5 * randn(dout * d)
+    for norm in ("norm1", "norm2"):
+        p[f"b.{norm}.weight"] = 1 + 0.05 * randn(d)
+        p[f"b.{norm}.bias"] = 0.05 * randn(d)
+    return p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", list(VIT_ROWS))
+def test_timm_block_epilogue_against_the_plain_path(monkeypatch, config):
+    """One bf16 block at the bulk batch on the cells' route, its products
+    in the epilogue, against the same block with the plain sequence:
+    every row's cosine above 0.999."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc")
+    _, depth, heads, patch = vit.MAE_CONFIGS[config]
+    rows, d = VIT_ROWS[config]
+    p = _vit_block_params(d, seed=d)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(256, rows // 256, d, device="cuda", generator=gen)
+    x = x.bfloat16()
+    got = vit.timm_block(x, p, "b", heads, fused="attention")
+    monkeypatch.setattr(vit, "block_linear",
+                        lambda x, w, b, gelu=False: _plain_product(
+                            x, w.to(x.dtype), b.to(x.dtype), gelu))
+    want = vit.timm_block(x, p, "b", heads, fused="attention")
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == x.shape
+    assert _row_cosine(got.reshape(-1, d), want.reshape(-1, d)) > 0.999

@@ -103,9 +103,12 @@ def test_block_spans_once_a_block():
     for s in recorded:
         if s.name == "kernel.fused_attention":
             assert by_id[s.parent].name == "vit.attn"
+        elif s.name == "vit.linear":
+            assert by_id[s.parent].name in ("vit.attn", "vit.mlp")
         elif s.name.startswith("vit."):
             assert s.parent is None
-    halves = [n for n in names if n.startswith("vit.")]
+    assert names.count("vit.linear") == 4 * enc["depth"]
+    halves = [n for n in names if n in ("vit.attn", "vit.mlp")]
     assert halves == ["vit.attn", "vit.mlp"] * enc["depth"]
 
 

@@ -4,9 +4,12 @@ weights (CPU).  The small encoder is the oracle of
 tests/torch_ref/vit.py at dim 128, depth 2, 4 heads (head dim 32, which
 the kernel takes), at 224 input so L = 197."""
 
+import math
+
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 import jax.numpy as jnp
 
@@ -17,6 +20,7 @@ from pvr_habitat_tpu_torch.models import common as tcm
 from pvr_habitat_tpu_torch.models import convert as tconvert
 from pvr_habitat_tpu_torch.models import vit as tvit
 from pvr_habitat_tpu_torch.ops.cuda import attention as tattn
+from pvr_habitat_tpu_torch.utils import profiling
 from tests.torch_ref import vit as oracle_vit
 
 F32_TOL = 1e-6      # primitives: same math, other summation order
@@ -173,3 +177,96 @@ def test_jax_attention_switches_change_nothing(monkeypatch, dtype):
         for route, want in base.items():
             torch.testing.assert_close(_mae(params, x, route), want,
                                        atol=0, rtol=0)
+
+
+def _plain_attention(x, wqkv, bqkv, wo, bo, heads, fused):
+    """``multihead_attention`` as the op-by-op sequence the JAX package
+    rounds at: (N, L, D) products, ``+ b``, the q-scaling fold off the
+    kernel."""
+    n, l, d = x.shape
+    head, dt = d // heads, x.dtype
+    wqkv, bqkv = wqkv.to(dt), bqkv.to(dt)
+    use_kernel = fused == "attention" and tattn.kernel_applies(dt, l)
+    if not use_kernel:
+        scale = torch.tensor(1.0 / math.sqrt(head), dtype=dt)
+        wqkv = torch.cat([wqkv[:d] * scale, wqkv[d:]])
+        bqkv = torch.cat([bqkv[:d] * scale, bqkv[d:]])
+    qkv = (x @ wqkv.T + bqkv).view(n, l, 3, heads, head)
+    q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))
+    if use_kernel:
+        out = tattn.fused_attention(q, k, v)
+    else:
+        logits = q @ k.transpose(-1, -2)
+        if dt == torch.bfloat16:
+            e = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+            probs = e * (1.0 / e.float().sum(dim=-1, keepdim=True)).to(dt)
+        else:
+            probs = torch.softmax(logits.float(), dim=-1).to(dt)
+        out = probs @ v
+    out = out.transpose(1, 2).reshape(n, l, d)
+    return out @ wo.to(dt).T + bo.to(dt)
+
+
+def _plain_block(x, p, prefix, heads, fused):
+    y = tcm.layer_norm(x, p, f"{prefix}.norm1")
+    x = x + _plain_attention(
+        y, p[f"{prefix}.attn.qkv.weight"], p[f"{prefix}.attn.qkv.bias"],
+        p[f"{prefix}.attn.proj.weight"], p[f"{prefix}.attn.proj.bias"],
+        heads, fused)
+    y = tcm.layer_norm(x, p, f"{prefix}.norm2")
+    n, l, _ = y.shape
+    y = tcm.gelu(tcm.linear(y.reshape(n * l, -1), p, f"{prefix}.mlp.fc1"))
+    return x + tcm.linear(y, p, f"{prefix}.mlp.fc2").reshape(n, l, -1)
+
+
+@pytest.mark.parametrize("fused", ["off", "attention"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_is_the_plain_sequence_on_the_cpu(dtype, fused):
+    """Off the card every product of a block is the product, ``+ b`` and
+    ``common.gelu`` op by op: bit for bit the JAX package's rounding
+    points, on either route (the bf16 ``attention`` route takes the
+    kernel's plain version here)."""
+    _, tparams = _small_encoder()
+    params = {k: v.to(dtype) for k, v in tparams.items()}
+    x = torch.from_numpy(_x((2, 197, DIM), seed=6)).to(dtype)
+    with torch.no_grad():
+        got = tvit.timm_block(x, params, "blocks.0", HEADS, fused=fused)
+        want = _plain_block(x, params, "blocks.0", HEADS, fused)
+    assert got.dtype == dtype
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_is_the_plain_sequence_on_the_cpu(dtype):
+    """``multihead_attention`` as CLIP ViT-B/32 calls it: f32 weights, the
+    einsum core at L = 50."""
+    _, tparams = _small_encoder()
+    x = torch.from_numpy(_x((3, 50, DIM), seed=7)).to(dtype)
+    args = [tparams[f"blocks.1.attn.{k}"] for k in (
+        "qkv.weight", "qkv.bias", "proj.weight", "proj.bias")]
+    with torch.no_grad():
+        got = tvit.multihead_attention(x, *args, HEADS)
+        want = _plain_attention(x, *args, HEADS, "off")
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_products_open_plain_linear_spans_on_the_cpu(dtype):
+    """Each of a block's four products opens a ``vit.linear`` span inside
+    its half, qkv and the projection in ``vit.attn``, fc1 and fc2 in
+    ``vit.mlp``; off the card its ``epilogue`` reads ``plain``."""
+    _, tparams = _small_encoder()
+    params = {k: v.to(dtype) for k, v in tparams.items()}
+    x = torch.from_numpy(_x((1, 197, DIM), seed=8)).to(dtype)
+    first = max((s.id for s in profiling.spans()), default=-1) + 1
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU]):
+        for i in range(DEPTH):
+            x = tvit.timm_block(x, params, f"blocks.{i}", HEADS,
+                                fused="attention")
+    recorded = profiling.spans(first)
+    by_id = {s.id: s for s in recorded}
+    products = [s for s in recorded if s.name == "vit.linear"]
+    assert [by_id[s.parent].name for s in products] == (
+        ["vit.attn"] * 2 + ["vit.mlp"] * 2) * DEPTH
+    assert [s.attrs for s in products] == [{"epilogue": "plain"}] * (
+        4 * DEPTH)
